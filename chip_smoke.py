@@ -6,21 +6,28 @@
 Phases, all of them, in order; any failure exits non-zero and prints no
 result line:
 
-  card   the card's name and power limit (nvidia-smi); no CUDA -> error
-  build  nvcc-builds every kernel of cutesv_tpu_torch/csrc
+  card   the card's name and power limit (nvidia-smi), the host's
+         usable cores and compression libraries; no CUDA -> error
+  build  builds both native libraries at once: nvcc for every kernel of
+         cutesv_tpu_torch/csrc, g++ for the BAM decoder of native/
   k1     the cover-count kernel at genome scale (32,768 windows x
          1,500,000 reads: one int32 flush of a 30x human genome), plus a
          ragged, a half-integral and an empty case: the kernel must EQUAL
          its plain PyTorch version on the card; times of the bare launch
          (on a preallocated output), of the wrapper call and of the plain
-         version, at genome scale and at the main path's shape
+         version
   cluster  the DEL/INS cluster program over 2**22 padded rows on the card
          must equal the same call on the CPU (sort stability, dtypes)
   e2e    simulates a 100 Mb, 4-chromosome, 20x, 20 kb-read corpus with
          planted DEL/INS every 50 kb and drives the CLI entry point
-         (--genotype -s 5) on cuda: the cover kernel must have launched,
-         the VCF body must equal the --device cpu run byte for byte, and
-         >= 99% of the planted sites must be called (type, <= 200 bp)
+         (--genotype -s 5) three times: native decoder on cuda (the main
+         path), native on cpu, python decoder on cuda. The main path must
+         have used the native decoder and launched the cover kernel
+         exactly once (100 Mb fits one 1e9-bp flush), the three VCF
+         bodies must be equal byte for byte, and >= 99% of the planted
+         sites must be called (type, <= 200 bp)
+  k1 main-path shape  the kernel (bare launch, wrapper, plain version,
+         equal) at the window and read counts of the main path's launch
 
 Then one {"kernels": [...]} line, the nvidia-smi line and, last, the
 {"ok": true, "device": {...}} line. Everything is built and written
@@ -33,6 +40,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -68,6 +76,20 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def codec_line() -> str:
+    """Which compression runtime libraries and headers this machine has
+    (the decoder links the runtime sonames and needs no header)."""
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                          text=True, timeout=60).stdout
+    have = ["%s %s" % (n, "yes" if n in libs else "no")
+            for n in ("libz.so.1", "liblzma.so.5", "libbz2.so.1.0",
+                      "libdeflate.so")]
+    have += ["%s %s" % (h, "yes" if os.path.exists("/usr/include/" + h)
+                        else "no")
+             for h in ("zlib.h", "lzma.h", "bzlib.h", "libdeflate.h")]
+    return ", ".join(have)
 
 
 def time_cuda(fn, reps: int, setup=None) -> tuple:
@@ -162,20 +184,6 @@ def phase_k1(res: dict) -> None:
            K1_WINDOWS * K1_READS / (k_ms / 1e3),
            float(k_out.double().mean())))
 
-    # the main path's shape: one chromosome and SV type of the e2e corpus
-    # (~250 genotype windows against ~25,000 primary reads)
-    m_wins = random_windows(rng, 250, 25_000_000)
-    m_st, m_en = random_reads(rng, 25_000, 25_000_000)
-    m_tens = scaled_tensors(m_wins, m_st, m_en, dev)
-    m_ms, m_out, mw_ms, mw_out = time_k1(m_tens, 50)
-    mp_ms, mp_out, _ = time_cuda(lambda: cover_plain(*m_tens), 10)
-    if not (torch.equal(m_out, mp_out) and torch.equal(mw_out, mp_out)):
-        raise AssertionError("cover kernel != plain at the main-path shape")
-    m_bound, m_by = k1_bound_ms(250, 25_000)
-    log("k1 main-path shape: 250 windows x 25000 reads: kernel %.4f ms, "
-        "wrapper %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
-        % (m_ms, mw_ms, mp_ms, m_bound, m_by))
-
     # ragged sizes, half-integral windows, empty inputs (wrapper contract)
     cases = {
         "ragged": (random_windows(rng, 5_003, 10_000_000),
@@ -194,7 +202,30 @@ def phase_k1(res: dict) -> None:
         log("k1 %s case: %d windows x %d reads equal" % (name, len(w),
                                                         len(s)))
     res["k1"] = dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=bound,
-                     bound_by=by, max_abs_err=err, main_path_ms=m_ms,
+                     bound_by=by, max_abs_err=err)
+
+
+def phase_k1_main(res: dict) -> None:
+    """The kernel at the shape of the main path's launch (all windows and
+    primary reads of one 1e9-bp flush of the e2e corpus), random inputs
+    over the corpus's 100 Mb of offset coordinates."""
+    from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
+
+    n_sv, n_reads = res["main_shape"]
+    rng = np.random.default_rng(4)
+    span = int(E2E_MB * 1e6)
+    tens = scaled_tensors(random_windows(rng, n_sv, span),
+                          *random_reads(rng, n_reads, span),
+                          torch.device("cuda"))
+    m_ms, m_out, mw_ms, mw_out = time_k1(tens, 50)
+    mp_ms, mp_out, _ = time_cuda(lambda: cover_plain(*tens), 10)
+    if not (torch.equal(m_out, mp_out) and torch.equal(mw_out, mp_out)):
+        raise AssertionError("cover kernel != plain at the main-path shape")
+    m_bound, m_by = k1_bound_ms(n_sv, n_reads)
+    log("k1 main-path shape: %d windows x %d reads: kernel %.4f ms, "
+        "wrapper %.4f ms, plain %.4f ms, bound %.5f ms (%s), equal"
+        % (n_sv, n_reads, m_ms, mw_ms, mp_ms, m_bound, m_by))
+    res["k1"].update(main_path_shape=[n_sv, n_reads], main_path_ms=m_ms,
                      main_path_wrapper_ms=mw_ms, main_path_plain_ms=mp_ms,
                      main_path_bound_ms=m_bound)
 
@@ -282,6 +313,10 @@ def _recall(truth_bed: str, vcf_path: str) -> tuple:
     return hit, n, gts
 
 
+# (decoder, device) of each e2e run; the first is the main path
+E2E_RUNS = (("native", "cuda"), ("native", "cpu"), ("python", "cuda"))
+
+
 def phase_e2e(res: dict) -> None:
     from cutesv_tpu_torch import cli
     from cutesv_tpu_torch.ops import cover
@@ -295,41 +330,90 @@ def phase_e2e(res: dict) -> None:
     log("e2e corpus: %.0f Mb, 4 chromosomes, %d reads, simulated in %.1f s"
         % (E2E_MB, sim["n_reads"], time.time() - t0))
     runs = {}
-    for device in ("cuda", "cpu"):
-        out = os.path.join(WORK, "calls_%s.vcf" % device)
-        wd = os.path.join(WORK, "wd_%s" % device)
+    for decoder, device in E2E_RUNS:
+        tag = "%s_%s" % (decoder, device)
+        out = os.path.join(WORK, "calls_%s.vcf" % tag)
+        wd = os.path.join(WORK, "wd_%s" % tag)
         if os.path.exists(out):
             os.remove(out)
         os.makedirs(wd, exist_ok=True)
         for f in os.listdir(wd):
             os.remove(os.path.join(wd, f))
         argv = [sim["bam"], sim["fa"], out, wd, "--genotype", "-s", "5",
-                "--device", device]
-        if device == "cuda":
-            cover.LAUNCHES = 0
+                "--decoder", decoder, "--device", device]
+        cover.LAUNCHES = 0
+        cover.LAST_SHAPE = (0, 0)
         t1 = time.time()
         stats = cli.run(argv)
         if device == "cuda":
             torch.cuda.synchronize()
-            res["launches"] = cover.LAUNCHES
-        log("e2e %s: %d calls; decode %.2f s, resolve %.4f s, emit %.4f s, "
-            "total %.2f s" % (device, stats["n_calls"], stats["decode_s"],
-                              stats["resolve_s"], stats["emit_s"],
-                              time.time() - t1))
-        runs[device] = (out, stats)
-    if res["launches"] <= 0:
-        raise AssertionError("the e2e run never launched the cover kernel")
-    if _body(runs["cuda"][0]) != _body(runs["cpu"][0]):
-        raise AssertionError("cuda VCF body differs from the cpu run")
-    hit, n, gts = _recall(sim["bed"], runs["cuda"][0])
+        stats = dict(stats, launches=cover.LAUNCHES,
+                     shape=list(cover.LAST_SHAPE), wall_s=time.time() - t1)
+        if stats["decoder"] != decoder:
+            raise AssertionError("e2e %s ran the %s decoder"
+                                 % (tag, stats["decoder"]))
+        core = ""
+        if decoder == "native":
+            core = (" (decoder walk %.3f s, inflate %.3f core-s, records "
+                    "%.3f core-s)" % (stats["walk_s"], stats["inflate_core_s"],
+                                      stats["records_core_s"]))
+        log("e2e %s: %d calls; decode %.3f s%s, resolve %.4f s, emit %.4f "
+            "s, total %.2f s; cover launches %d, last at %s"
+            % (tag, stats["n_calls"], stats["decode_s"], core,
+               stats["resolve_s"], stats["emit_s"], stats["wall_s"],
+               stats["launches"], stats["shape"]))
+        runs[tag] = (out, stats)
+    main = runs["native_cuda"][1]
+    res["launches"] = main["launches"]
+    res["main_shape"] = main["shape"]
+    if main["launches"] != 1:
+        raise AssertionError("the main path launched the cover kernel %d "
+                             "times, not once" % main["launches"])
+    bodies = {tag: _body(out) for tag, (out, _) in runs.items()}
+    for tag, body in bodies.items():
+        if body != bodies["native_cuda"]:
+            raise AssertionError("%s VCF body differs from native_cuda" % tag)
+    hit, n, gts = _recall(sim["bed"], runs["native_cuda"][0])
     log("e2e recall: %d / %d planted DEL/INS called (%.4f); GT tally %s; "
-        "cover launches %d; VCF equal to the cpu run"
+        "VCF bodies of %s equal"
         % (hit, n, hit / n, json.dumps(gts, sort_keys=True),
-           res["launches"]))
+           ", ".join(bodies)))
     if n == 0 or hit < 0.99 * n:
         raise AssertionError("recall %d/%d below 99%%" % (hit, n))
-    res["e2e"] = {k: runs["cuda"][1][k]
-                  for k in ("decode_s", "resolve_s", "emit_s", "n_calls")}
+    keys = ("decode_s", "resolve_s", "emit_s", "n_calls", "launches",
+            "walk_s", "inflate_core_s", "records_core_s")
+    res["e2e"] = {tag: {k: st[k] for k in keys if k in st}
+                  for tag, (_, st) in runs.items()}
+
+
+def phase_build() -> None:
+    """Both native libraries, built at the same time."""
+    from cutesv_tpu_torch.io import native
+    from cutesv_tpu_torch.ops import build
+
+    errors = []
+
+    def decoder():
+        try:
+            native.get_lib()
+        except BaseException as exc:  # re-raised below
+            errors.append(exc)
+
+    t0 = time.time()
+    th = threading.Thread(target=decoder)
+    th.start()
+    try:
+        build.library()
+    finally:
+        th.join()
+    if errors:
+        raise errors[0]
+    k, d = build.build_info["kernels"], build.build_info["decoder"]
+    log("build: %.1f s in all; kernels (nvcc) %.1f s, decoder (g++) %.1f s"
+        % (time.time() - t0, k["seconds"], d["seconds"]))
+    log("nvcc report:\n%s" % k["report"])
+    if d["report"].strip():
+        log("g++ report:\n%s" % d["report"])
 
 
 def main() -> int:
@@ -337,17 +421,18 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs on a CUDA GPU only")
     sys.path.insert(0, REPO)
-    from cutesv_tpu_torch.ops import build
 
     card = card_line()
     log("card: %s" % card)
+    log("host: %d usable cores (sched_getaffinity), %d in all"
+        % (len(os.sched_getaffinity(0)), os.cpu_count()))
+    log("codecs: %s" % codec_line())
     res: dict = {}
-    build.library()
-    log("build: %.1f s\n%s" % (build.build_info.get("seconds", 0.0),
-                               build.build_info.get("report", "")))
+    phase_build()
     phase_k1(res)
     phase_cluster(res)
     phase_e2e(res)
+    phase_k1_main(res)
     # every phase passed (each raises otherwise), so the kernel is equal
     log(json.dumps({"kernels": [dict(
         name="cover_count", route="cuda",

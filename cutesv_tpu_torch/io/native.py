@@ -1,0 +1,236 @@
+"""ctypes binding for the native BAM signature decoder (``native/``).
+
+:func:`decode` runs ``native/bamdecode.cpp`` over a whole BAM and returns
+the same logical content as the Python decoder's signature extraction,
+as numpy SoA arrays. The library is built with ``g++`` at first use
+(``ops/build.py::decoder_library``); a failed build or load raises, and
+nothing here falls back to the Python reader.
+
+Field ids are kept in lockstep with the switch in bamdecode.cpp.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+
+from cutesv_tpu_torch.ops import build
+
+_lib = None
+
+
+def get_lib() -> ctypes.CDLL:
+    """The decoder library (built and loaded on first use), bound."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = build.decoder_library()
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.bamdecode_run.restype = vp
+    lib.bamdecode_run.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(i64),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(i64),
+        ctypes.POINTER(i64), i64]
+    lib.bamdecode_status.restype = ctypes.c_int
+    lib.bamdecode_status.argtypes = [vp]
+    lib.bamdecode_n_records.restype = i64
+    lib.bamdecode_n_records.argtypes = [vp]
+    for fn in ("bamdecode_walk_seconds", "bamdecode_inflate_core_seconds",
+               "bamdecode_records_core_seconds"):
+        getattr(lib, fn).restype = ctypes.c_double
+        getattr(lib, fn).argtypes = [vp]
+    lib.bamdecode_err.restype = ctypes.c_char_p
+    lib.bamdecode_err.argtypes = [vp]
+    lib.bamdecode_get.restype = ctypes.c_int
+    lib.bamdecode_get.argtypes = [vp, ctypes.c_int, ctypes.POINTER(vp),
+                                  ctypes.POINTER(i64)]
+    lib.bamdecode_free.argtypes = [vp]
+    _lib = lib
+    return lib
+
+
+_DTYPES = {  # field id -> numpy dtype (None = raw bytes)
+    0: None, 1: np.int64, 2: np.int64, 3: None, 4: np.int64, 5: np.int64,
+    10: np.int32, 11: np.int64, 12: np.int64, 13: np.int64,
+    20: np.int32, 21: np.int64, 22: np.int64, 23: np.int64,
+    24: np.int64, 25: np.int64, 26: None, 27: np.int64,
+    30: np.int32, 31: np.int64, 32: np.int64, 33: np.int64,
+    40: np.int32, 41: np.int8, 42: np.int64, 43: np.int64, 44: np.int64,
+    50: np.int32, 51: np.int8, 52: np.int64, 53: np.int32, 54: np.int64,
+    55: np.int64,
+    60: np.int32, 61: np.int64, 62: np.int64, 63: np.int8, 64: np.int64,
+    70: np.int32, 71: np.int64, 72: np.int64, 73: np.int8, 74: np.int64,
+    80: np.int64, 81: np.int64,
+}
+
+
+@dataclass
+class NativeDecode:
+    """Decoded signature tensors. Names/chroms are Python string lists;
+    per-type signature arrays use name ids (``names[id]``) and chrom ids
+    (``chroms[id]``); ``name_rank`` maps id -> lexicographic rank."""
+
+    names: List[str]
+    name_rank: np.ndarray
+    chroms: List[str]
+    ref_lengths: np.ndarray       # header refs only (len == n header refs)
+    n_records: int
+    arrays: Dict[str, np.ndarray]
+    ins_seq_blob: bytes
+    # uncompressed offsets of the first record (the header's end) and of
+    # the end of the last record (ranged decodes, whose shards check
+    # these against each other, come with the multi-host port)
+    first_u: int = 0
+    next_u: int = 0
+    # decoder-internal record-walk wall (s)
+    walk_s: float = 0.0
+    # busy CORE-seconds, summed over all participating threads: inflate
+    # (zlib spans) and record-parse loops
+    inflate_core_s: float = 0.0
+    records_core_s: float = 0.0
+
+    def ins_seq(self, i: int) -> str:
+        off = self.arrays["ins_seq_off"][i]
+        ln = self.arrays["ins_seq_len"][i]
+        return self.ins_seq_blob[off:off + ln].decode("ascii")
+
+
+_FIELDS = {
+    "del_chr": 10, "del_pos": 11, "del_len": 12, "del_name": 13,
+    "ins_chr": 20, "ins_posx2": 21, "ins_len": 22, "ins_name": 23,
+    "ins_seq_off": 24, "ins_seq_len": 25, "ins_seq_rank": 27,
+    "dup_chr": 30, "dup_p1": 31, "dup_p2": 32, "dup_name": 33,
+    "inv_chr": 40, "inv_strand": 41, "inv_b1": 42, "inv_b2": 43,
+    "inv_name": 44,
+    "tra_chr1": 50, "tra_type": 51, "tra_p1": 52, "tra_chr2": 53,
+    "tra_p2": 54, "tra_name": 55,
+    "cen_chr": 60, "cen_start": 61, "cen_end": 62, "cen_prim": 63,
+    "cen_name": 64,
+    "all_chr": 70, "all_start": 71, "all_end": 72, "all_prim": 73,
+    "all_name": 74,
+}
+
+
+def _fetch(lib, handle, field: int):
+    data = ctypes.c_void_p()
+    n = ctypes.c_int64()
+    rc = lib.bamdecode_get(handle, field, ctypes.byref(data),
+                           ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError("bamdecode_get(%d) failed" % field)
+    dtype = _DTYPES[field]
+    if n.value == 0:
+        return b"" if dtype is None else np.empty(0, dtype)
+    if dtype is None:
+        return ctypes.string_at(data, n.value)
+    # single copy straight out of the native buffer
+    ctype = np.ctypeslib.as_ctypes_type(np.dtype(dtype))
+    view = np.ctypeslib.as_array(ctypes.cast(data, ctypes.POINTER(ctype)),
+                                 shape=(n.value,))
+    return view.copy()
+
+
+def _err_detail(lib, handle) -> str:
+    try:
+        msg = lib.bamdecode_err(handle)
+        return msg.decode("utf-8", "replace") if msg else ""
+    except Exception:
+        return ""
+
+
+class NativeUnsupported(IOError):
+    """The native decoder met a feature it does not implement (status 10,
+    e.g. a legacy lzma-"alone" CRAM block or a CRAM 2.x file)."""
+
+
+def _call_args(cfg, bed_ids, reference):
+    params = (ctypes.c_int64 * 11)(
+        cfg.min_size, cfg.min_mapq, cfg.max_split_parts, cfg.min_read_len,
+        cfg.min_siglength, cfg.merge_del_threshold, cfg.merge_ins_threshold,
+        cfg.max_size, getattr(cfg, "threads", 2), 0, 0)
+    keepalive = []
+    if bed_ids is not None and len(bed_ids[0]):
+        bc = np.ascontiguousarray(bed_ids[0], np.int32)
+        bs = np.ascontiguousarray(bed_ids[1], np.int64)
+        be = np.ascontiguousarray(bed_ids[2], np.int64)
+        keepalive = [bc, bs, be]
+        n_bed = len(bc)
+        bc_p = bc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        bs_p = bs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+        be_p = be.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    else:
+        n_bed = 0
+        bc_p = ctypes.POINTER(ctypes.c_int32)()
+        bs_p = ctypes.POINTER(ctypes.c_int64)()
+        be_p = ctypes.POINTER(ctypes.c_int64)()
+    ref_arg = reference.encode() if reference else None
+    return params, ref_arg, bc_p, bs_p, be_p, n_bed, keepalive
+
+
+def _check_status(status: int, path: str, detail: str = ""):
+    if status == 10:
+        raise NativeUnsupported(
+            "native decode: unsupported CRAM feature in %s%s"
+            % (path, ": " + detail if detail else ""))
+    if status != 0:
+        base = {1: "cannot open file", 2: "not BGZF data",
+                3: "bad BAM header", 4: "malformed record",
+                5: "truncated file",
+                6: "mapped record without a CIGAR passes --min_mapq "
+                   "(its coordinates cannot be interpreted; re-align "
+                   "or fix the input)"}.get(status, "")
+        if detail:
+            base = (base + " — " + detail) if base else detail
+        raise IOError("native BAM decode failed (status %d%s) for %s"
+                      % (status, ": " + base if base else "", path))
+
+
+def _extract(lib, handle, path: str) -> NativeDecode:
+    name_blob = _fetch(lib, handle, 0)
+    name_off = _fetch(lib, handle, 1)
+    # one whole-blob decode + str slicing; BAM qnames are ASCII by spec,
+    # so validate the blob once (io/bam.py raises on bytes >= 0x80 too)
+    if not name_blob.isascii():
+        name_blob.decode("ascii")  # raises the Python reader's error
+    blob_s = name_blob.decode("latin-1")
+    offs = name_off.tolist()
+    names = [blob_s[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+    name_rank = _fetch(lib, handle, 2)
+    chrom_blob = _fetch(lib, handle, 3)
+    chrom_off = _fetch(lib, handle, 4)
+    chroms = [chrom_blob[chrom_off[i]:chrom_off[i + 1]].decode("ascii")
+              for i in range(len(chrom_off) - 1)]
+    ref_lengths = _fetch(lib, handle, 5)
+    arrays = {k: _fetch(lib, handle, f) for k, f in _FIELDS.items()}
+    ins_seq_blob = _fetch(lib, handle, 26)
+    return NativeDecode(names=names, name_rank=name_rank, chroms=chroms,
+                        ref_lengths=ref_lengths,
+                        n_records=lib.bamdecode_n_records(handle),
+                        arrays=arrays, ins_seq_blob=ins_seq_blob,
+                        first_u=int(_fetch(lib, handle, 80)[0]),
+                        next_u=int(_fetch(lib, handle, 81)[0]),
+                        walk_s=float(lib.bamdecode_walk_seconds(handle)),
+                        inflate_core_s=float(
+                            lib.bamdecode_inflate_core_seconds(handle)),
+                        records_core_s=float(
+                            lib.bamdecode_records_core_seconds(handle)))
+
+
+def decode(path: str, cfg, bed_ids=None, reference=None) -> NativeDecode:
+    """Run the native decoder over the whole file (BAM; CRAM when
+    ``reference`` names the FASTA). ``bed_ids``: optional (chr_id, start,
+    end) int arrays in header chrom-id space (already ±1000-padded).
+    ``cfg.threads`` sets the decode threads."""
+    lib = get_lib()
+    params, ref_arg, bc_p, bs_p, be_p, n_bed, _ka = _call_args(
+        cfg, bed_ids, reference)
+    handle = lib.bamdecode_run(path.encode(), ref_arg, params, bc_p, bs_p,
+                               be_p, n_bed)
+    try:
+        _check_status(lib.bamdecode_status(handle), path,
+                      _err_detail(lib, handle))
+        return _extract(lib, handle, path)
+    finally:
+        lib.bamdecode_free(handle)

@@ -15,9 +15,11 @@ from cutesv_tpu_torch.ops import build
 from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
-# kernel launches made by launch() (read by chip_smoke.py to show that
-# the main path went through the kernel)
+# kernel launches made by launch(), and the (windows, reads) shape of the
+# last one (read by chip_smoke.py to show that the main path went through
+# the kernel, and at which shape)
 LAUNCHES = 0
+LAST_SHAPE = (0, 0)
 
 
 def cover_tensors(sv_s, sv_e, st, en):
@@ -47,7 +49,7 @@ def launch(sv_s, sv_e, st, en, out):
     """One kernel launch on the current stream that ADDS the counts into
     ``out`` (zeroed by the caller); the inputs are checked by
     :func:`cover_tensors`, which is what callers use."""
-    global LAUNCHES
+    global LAUNCHES, LAST_SHAPE
     lib = build.library()
     with torch.cuda.device(sv_s.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -58,6 +60,7 @@ def launch(sv_s, sv_e, st, en, out):
         raise RuntimeError("cover_count kernel launch failed: CUDA error %d"
                            % err)
     LAUNCHES += 1
+    LAST_SHAPE = (sv_s.shape[0], st.shape[0])
     return out
 
 

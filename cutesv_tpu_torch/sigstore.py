@@ -7,9 +7,11 @@ keeps everything in memory as tuples (oracle path) or numpy SoA (device
 path); ``save``/``load`` provide the checkpoint that replaces the
 reference's pickle work_dir (its checkpoint/resume story, cuteSV:1101-1102).
 
-This is the Python-decoder half of ``cutesv_tpu/sigstore.py`` (read
-identity = name string); :func:`store_from_state` builds a store from
-plain dicts of arrays and tuples.
+Two constructors: :func:`build_store` from the Python decoder's tuple streams
+(read identity = name string) and :func:`build_store_native` from the C++
+decoder's arrays (read identity = lexicographic name rank);
+:func:`store_from_state` builds a store from plain dicts of arrays and
+tuples.
 """
 from __future__ import annotations
 
@@ -53,9 +55,11 @@ class SigStore:
     """Merged signature streams + read census, grouped per chromosome.
 
     :func:`build_store` populates this from the Python decoder's tuple
-    streams (read identity = name string); :func:`store_from_state` from
-    plain dicts. ``names`` (identity-rank -> read name) is set only by
-    rank-keyed stores.
+    streams (read identity = name string), :func:`build_store_native`
+    from the C++ decoder's arrays (read identity = lexicographic name
+    rank, rendered to strings via ``names``), :func:`store_from_state`
+    from plain dicts. DEL/INS streams of the native store are columnar
+    (models.device.IndelStream); DUP/INV/TRA stay small tuple lists.
     """
 
     # per type: chrom -> list of resolver-format rows (or IndelStream)
@@ -128,6 +132,197 @@ def _to_resolver_row(svtype: str, r: tuple) -> tuple:
         return (r[0], int(r[1]), int(r[2]), r[3])
     # TRA
     return (r[0], int(r[1]), r[2], int(r[3]), r[4])
+
+
+def _lexsort_packed(keys) -> np.ndarray:
+    """``np.lexsort(keys)`` with adjacent non-negative int keys packed
+    into single int64 columns when both fit 31 bits — each packed pair
+    is one fewer stable argsort pass (lexsort keys are least-significant
+    first, so ``keys[i+1]`` is the more significant of a pair). Exact:
+    packing two keys a (low) and b (high) as (b << 31) | a orders by
+    (b, a) precisely when 0 <= a,b < 2**31."""
+    out = []
+    i = 0
+    keys = [np.asarray(k) for k in keys]
+    while i < len(keys):
+        k = keys[i]
+        if i + 1 < len(keys) and len(k):
+            k2 = keys[i + 1]
+            if (k.dtype.kind in "iu" and k2.dtype.kind in "iu"
+                    and int(k.min()) >= 0 and int(k.max()) < (1 << 31)
+                    and int(k2.min()) >= 0 and int(k2.max()) < (1 << 31)):
+                out.append((k2.astype(np.int64) << np.int64(31))
+                           | k.astype(np.int64))
+                i += 2
+                continue
+        out.append(k)
+        i += 1
+    return np.lexsort(tuple(out))
+
+
+def _dedup_mask(*keys) -> np.ndarray:
+    """True for rows differing from the previous row in any key."""
+    n = len(keys[0])
+    if n == 0:
+        return np.zeros(0, bool)
+    keep = np.zeros(n, bool)
+    keep[0] = True
+    for k in keys:
+        keep[1:] |= k[1:] != k[:-1]
+    return keep
+
+
+def build_store_native(nd) -> SigStore:
+    """Merge the native decoder's signature arrays (io.native.NativeDecode)
+    into a SigStore.
+
+    Reproduces the stage-2 sort keys (cuteSV:763-810) with numpy lexsorts
+    over integer rank columns: chromosome names, read names and INS
+    sequences are compared via precomputed lexicographic ranks, which makes
+    integer sorting equal string sorting. Exact-duplicate removal compares
+    full rows (INS compares pos*2 exactly and sequences by content rank).
+    """
+    from cutesv_tpu_torch.models.device import IndelStream
+
+    A = nd.arrays
+    rank = np.asarray(nd.name_rank, np.int64)
+    # vectorized scatter (object arrays keep the strings by reference)
+    _nbr = np.empty(len(nd.names), object)
+    _nbr[rank] = np.asarray(nd.names, dtype=object)
+    names_by_rank = _nbr.tolist()
+    chrom_order = sorted(range(len(nd.chroms)), key=lambda i: nd.chroms[i])
+    chrom_rank = np.zeros(len(nd.chroms), np.int64)
+    for r, i in enumerate(chrom_order):
+        chrom_rank[i] = r
+    chrom_by_rank = [nd.chroms[i] for i in chrom_order]
+
+    store = SigStore(chrom_lengths={
+        nd.chroms[i]: int(nd.ref_lengths[i])
+        for i in range(len(nd.ref_lengths))})
+    store.names = names_by_rank
+
+    def per_chrom_slices(ck_sorted):
+        """Yield (chrom_name, lo, hi) for contiguous chrom groups."""
+        n = len(ck_sorted)
+        if n == 0:
+            return
+        bounds = np.flatnonzero(np.diff(ck_sorted)) + 1
+        lo = 0
+        for hi in list(bounds) + [n]:
+            yield chrom_by_rank[int(ck_sorted[lo])], lo, int(hi)
+            lo = int(hi)
+
+    # ---- DEL: key (chr, pos, len, name) --------------------------------
+    rid = rank[A["del_name"]]
+    ck = chrom_rank[A["del_chr"]]
+    order = _lexsort_packed((rid, A["del_len"], A["del_pos"], ck))
+    ck, pos, ln, rid = (ck[order], A["del_pos"][order], A["del_len"][order],
+                        rid[order])
+    keep = _dedup_mask(ck, pos, ln, rid)
+    ck, pos, ln, rid = ck[keep], pos[keep], ln[keep], rid[keep]
+    store.sigs["DEL"] = {
+        chrom: IndelStream.from_arrays(pos[lo:hi], ln[lo:hi], rid[lo:hi],
+                                       names_by_rank)
+        for chrom, lo, hi in per_chrom_slices(ck)}
+
+    # ---- INS: key (chr, int(pos), len, name, seq) ----------------------
+    rid = rank[A["ins_name"]]
+    ck = chrom_rank[A["ins_chr"]]
+    order = _lexsort_packed((A["ins_seq_rank"], rid, A["ins_len"],
+                             A["ins_posx2"] >> 1, ck))
+    ck, px2, ln, rid, sq = (ck[order], A["ins_posx2"][order],
+                            A["ins_len"][order], rid[order],
+                            A["ins_seq_rank"][order])
+    soff, slen = A["ins_seq_off"][order], A["ins_seq_len"][order]
+    keep = _dedup_mask(ck, px2, ln, rid, sq)
+    ck, px2, ln, rid = ck[keep], px2[keep], ln[keep], rid[keep]
+    soff, slen = soff[keep], slen[keep]
+    ipos = px2 >> 1  # resolution-time int(pos) truncation
+    store.sigs["INS"] = {
+        chrom: IndelStream.from_arrays(ipos[lo:hi], ln[lo:hi], rid[lo:hi],
+                                       names_by_rank, seq_len=slen[lo:hi],
+                                       seq_blob=nd.ins_seq_blob,
+                                       seq_off=soff[lo:hi])
+        for chrom, lo, hi in per_chrom_slices(ck)}
+
+    # ---- DUP: key (chr, pos1, pos2, name); tuple rows ------------------
+    rid = rank[A["dup_name"]]
+    ck = chrom_rank[A["dup_chr"]]
+    order = _lexsort_packed((rid, A["dup_p2"], A["dup_p1"], ck))
+    ck, p1, p2, rid = (ck[order], A["dup_p1"][order], A["dup_p2"][order],
+                       rid[order])
+    keep = _dedup_mask(ck, p1, p2, rid)
+    ck, p1, p2, rid = ck[keep], p1[keep], p2[keep], rid[keep]
+    store.sigs["DUP"] = {
+        chrom: list(zip(p1[lo:hi].tolist(), p2[lo:hi].tolist(),
+                        rid[lo:hi].tolist()))
+        for chrom, lo, hi in per_chrom_slices(ck)}
+
+    # ---- INV: key (chr, strand, bp1, bp2, name); tuple rows ------------
+    rid = rank[A["inv_name"]]
+    ck = chrom_rank[A["inv_chr"]]
+    st = A["inv_strand"].astype(np.int64)
+    order = _lexsort_packed((rid, A["inv_b2"], A["inv_b1"], st, ck))
+    ck, st, b1, b2, rid = (ck[order], st[order], A["inv_b1"][order],
+                           A["inv_b2"][order], rid[order])
+    keep = _dedup_mask(ck, st, b1, b2, rid)
+    ck, st, b1, b2, rid = ck[keep], st[keep], b1[keep], b2[keep], rid[keep]
+    strands = np.array(["++", "--"])
+    store.sigs["INV"] = {
+        chrom: list(zip(strands[st[lo:hi]].tolist(), b1[lo:hi].tolist(),
+                        b2[lo:hi].tolist(), rid[lo:hi].tolist()))
+        for chrom, lo, hi in per_chrom_slices(ck)}
+
+    # ---- TRA: key (chr1, chr2, type, pos1, pos2, name); tuple rows -----
+    rid = rank[A["tra_name"]]
+    ck1 = chrom_rank[A["tra_chr1"]]
+    ck2 = chrom_rank[A["tra_chr2"]]
+    ty = A["tra_type"].astype(np.int64)
+    order = _lexsort_packed((rid, A["tra_p2"], A["tra_p1"], ty, ck2, ck1))
+    ck1, ck2, ty, p1, p2, rid = (ck1[order], ck2[order], ty[order],
+                                 A["tra_p1"][order], A["tra_p2"][order],
+                                 rid[order])
+    keep = _dedup_mask(ck1, ck2, ty, p1, p2, rid)
+    ck1, ck2, ty, p1, p2, rid = (ck1[keep], ck2[keep], ty[keep], p1[keep],
+                                 p2[keep], rid[keep])
+    types = np.array(["A", "B", "C", "D"])
+    store.sigs["TRA"] = {
+        chrom: [(t, int(a), chrom_by_rank[int(c2)], int(b), int(r))
+                for t, a, c2, b, r in zip(
+                    types[ty[lo:hi]].tolist(), p1[lo:hi], ck2[lo:hi],
+                    p2[lo:hi], rid[lo:hi])]
+        for chrom, lo, hi in per_chrom_slices(ck1)}
+
+    # ---- census / read tables (stable per-chrom grouping) --------------
+    cen_ck = A["cen_chr"].astype(np.int64)
+    order = np.argsort(cen_ck, kind="stable")
+    cs, ce, cp, cn, cc = (A["cen_start"][order], A["cen_end"][order],
+                          A["cen_prim"][order], rank[A["cen_name"]][order],
+                          cen_ck[order])
+    n = len(cc)
+    bounds = list(np.flatnonzero(np.diff(cc)) + 1) + ([n] if n else [])
+    lo = 0
+    for hi in bounds:
+        chrom = nd.chroms[int(cc[lo])]
+        store.census[chrom] = dict(start=cs[lo:hi], end=ce[lo:hi],
+                                   is_primary=cp[lo:hi].astype(np.int8),
+                                   name=cn[lo:hi])
+        lo = int(hi)
+
+    all_ck = A["all_chr"].astype(np.int64)
+    order = np.argsort(all_ck, kind="stable")
+    s, e, p, nm, cc = (A["all_start"][order], A["all_end"][order],
+                       A["all_prim"][order], rank[A["all_name"]][order],
+                       all_ck[order])
+    n = len(cc)
+    bounds = list(np.flatnonzero(np.diff(cc)) + 1) + ([n] if n else [])
+    lo = 0
+    for hi in bounds:
+        chrom = nd.chroms[int(cc[lo])]
+        store.read_tables[chrom] = ReadTable(s[lo:hi], e[lo:hi], p[lo:hi],
+                                             nm[lo:hi])
+        lo = int(hi)
+    return store
 
 
 def store_from_state(state: dict) -> SigStore:

@@ -73,9 +73,11 @@ def test_cuda_run_equals_cpu_run(card, tmp_path):
                      work_dir=str(tmp_path / device), genotype=True,
                      min_support=5)
         before = cover.LAUNCHES
-        run_pipeline(cfg, ["x"], device=device)
+        stats = run_pipeline(cfg, ["x"], device=device)
+        assert stats["decoder"] == "native"  # the default
         if device == "cuda":
-            assert cover.LAUNCHES > before
+            # one batched cover pass: 1 Mb fits one 1e9-bp flush
+            assert cover.LAUNCHES == before + 1
         bodies[device] = [l for l in out.read_text().splitlines()
                           if not l.startswith(("##fileDate",
                                                "##CommandLine"))]

@@ -183,7 +183,6 @@ def test_default_device_raises_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("decoder", "native", "item 6"),
     ("Ivcf", "calls.vcf", "item 14"),
     ("n_shards", 2, "item 11"),
     ("distributed", True, "item 12"),
