@@ -18,17 +18,32 @@ result line:
          version
   cluster  the DEL/INS cluster program over 2**22 padded rows on the card
          must equal the same call on the CPU (sort stability, dtypes)
+  pair   the DUP/INV/TRA pair-cluster program over 2**22 padded rows,
+         DUP-style, INV-style (break on k2) and with TRA aux codes: the
+         card must equal the CPU
   e2e    simulates a 100 Mb, 4-chromosome, 20x, 20 kb-read corpus with
          planted DEL/INS every 50 kb and drives the CLI entry point
-         (--genotype -s 5) three times: native decoder on cuda (the main
-         path), native on cpu, python decoder on cuda. The main path must
-         have used the native decoder and launched the cover kernel
-         exactly once (100 Mb fits one 1e9-bp flush), the three VCF
-         bodies must be equal byte for byte, and >= 99% of the planted
-         sites must be called (type, <= 200 bp)
-  k1 main-path shape  the kernel (bare launch, wrapper, plain version,
-         equal) at the window and read counts of the main path's launch
+         (--genotype -s 5) four times: native decoder on cuda (the main
+         path: the streaming decode, on by default with 2+ usable
+         cores), the same with CUTESV_STREAM_DISPATCH=0, native on cpu,
+         python decoder on cuda. The main path must have streamed and
+         launched the cover kernel at least once and at most once per
+         1e9-bp flush, the VCF bodies must be equal byte for byte, and
+         >= 99% of the planted sites must be called (type, <= 200 bp)
+  alltypes  writes a VISOR HACk truth bed with a DEL, INS, tandem DUP,
+         inversion or reciprocal translocation every 20 kb of a 64 Mb
+         window, replays it into a 20x corpus (tools/simulate.py::replay)
+         and calls it three times: native on cuda (the main path), native
+         on cpu, and --engine host on cuda. Equal bodies, the main path's
+         launches as above, and >= 99% of each planted type called with
+         its type within 1 kb (BND per breakend pair)
+  k1 main-path shapes  the kernel (bare launch, wrapper, plain version,
+         equal) at the window and read counts of each main path's last
+         launch
 
+Each main-path run sets the launch counts to 0 just before it and reads
+them just after; the streaming runs print their early programs and
+tails, the overlap seconds and where the genotype windows were counted.
 Then one {"kernels": [...]} line, the nvidia-smi line and, last, the
 {"ok": true, "device": {...}} line. Everything is built and written
 under build/ beside this script.
@@ -37,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -206,28 +222,31 @@ def phase_k1(res: dict) -> None:
 
 
 def phase_k1_main(res: dict) -> None:
-    """The kernel at the shape of the main path's launch (all windows and
-    primary reads of one 1e9-bp flush of the e2e corpus), random inputs
-    over the corpus's 100 Mb of offset coordinates."""
+    """The kernel at the shape of each main path's last launch (windows
+    and primary reads of one 1e9-bp flush), random inputs over that
+    corpus's span of offset coordinates."""
     from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
 
-    n_sv, n_reads = res["main_shape"]
-    rng = np.random.default_rng(4)
-    span = int(E2E_MB * 1e6)
-    tens = scaled_tensors(random_windows(rng, n_sv, span),
-                          *random_reads(rng, n_reads, span),
-                          torch.device("cuda"))
-    m_ms, m_out, mw_ms, mw_out = time_k1(tens, 50)
-    mp_ms, mp_out, _ = time_cuda(lambda: cover_plain(*tens), 10)
-    if not (torch.equal(m_out, mp_out) and torch.equal(mw_out, mp_out)):
-        raise AssertionError("cover kernel != plain at the main-path shape")
-    m_bound, m_by = k1_bound_ms(n_sv, n_reads)
-    log("k1 main-path shape: %d windows x %d reads: kernel %.4f ms, "
-        "wrapper %.4f ms, plain %.4f ms, bound %.5f ms (%s), equal"
-        % (n_sv, n_reads, m_ms, mw_ms, mp_ms, m_bound, m_by))
-    res["k1"].update(main_path_shape=[n_sv, n_reads], main_path_ms=m_ms,
-                     main_path_wrapper_ms=mw_ms, main_path_plain_ms=mp_ms,
-                     main_path_bound_ms=m_bound)
+    spans = {"e2e_100mb": int(E2E_MB * 1e6),
+             "alltypes": ALLTYPES_MB * 1_000_000}
+    res["k1"]["main_path"] = {}
+    for path, (n_sv, n_reads) in res["main_shapes"].items():
+        rng = np.random.default_rng(4)
+        tens = scaled_tensors(random_windows(rng, n_sv, spans[path]),
+                              *random_reads(rng, n_reads, spans[path]),
+                              torch.device("cuda"))
+        m_ms, m_out, mw_ms, mw_out = time_k1(tens, 50)
+        mp_ms, mp_out, _ = time_cuda(lambda: cover_plain(*tens), 10)
+        if not (torch.equal(m_out, mp_out) and torch.equal(mw_out, mp_out)):
+            raise AssertionError("cover kernel != plain at the %s main-path "
+                                 "shape" % path)
+        m_bound, m_by = k1_bound_ms(n_sv, n_reads)
+        log("k1 %s main-path shape: %d windows x %d reads: kernel %.4f ms, "
+            "wrapper %.4f ms, plain %.4f ms, bound %.5f ms (%s), equal"
+            % (path, n_sv, n_reads, m_ms, mw_ms, mp_ms, m_bound, m_by))
+        res["k1"]["main_path"][path] = dict(
+            shape=[n_sv, n_reads], ms=m_ms, wrapper_ms=mw_ms,
+            plain_ms=mp_ms, bound_ms=m_bound)
 
 
 def synthetic_del_stream(rng, n: int):
@@ -285,6 +304,73 @@ def phase_cluster(res: dict) -> None:
     res["cluster_ms"] = ms
 
 
+def synthetic_pair_rows(rng, n: int, tra_aux: bool):
+    """Sorted k1 (a new site every ~20 rows, 150-bp-scale jitter so gaps
+    sit on both sides of the bias), k2 a few kb on, read ids from a small
+    range; aux constant over sorted blocks of 4,096 rows, as the store's
+    sort keys make it: INV strands 0/1, or TRA codes chr2*4 + type."""
+    site = np.cumsum((rng.random(n) < 0.05) * rng.integers(300, 5_000, n))
+    k1 = np.sort(site + rng.integers(-150, 150, n) + 1_000)
+    k2 = k1 + rng.integers(500, 3_000, n)
+    n_blocks = n // 4_096 + 1
+    codes = (rng.integers(0, 3, n_blocks) * 4 + rng.integers(0, 4, n_blocks)
+             if tra_aux else rng.integers(0, 2, n_blocks))
+    aux = np.repeat(codes, 4_096)[:n]
+    return k1, k2, aux, rng.integers(0, 40, n)
+
+
+def phase_pair(res: dict) -> None:
+    """The DUP/INV/TRA pair-cluster program over 2**22 padded rows on the
+    card must equal the same call on the CPU: DUP-style (no k2 break),
+    INV-style (break on k2 gaps, strand aux) and TRA-style aux codes."""
+    from cutesv_tpu_torch.ops.pair_cluster import (compact_pair_outputs,
+                                                   pair_cluster_structure)
+
+    n_valid = CLUSTER_ROWS - 12_345
+    res["pair_cluster_ms"] = {}
+    for name, break_on_k2, tra_aux in (("dup", False, False),
+                                       ("inv", True, False),
+                                       ("tra", False, True)):
+        rng = np.random.default_rng(6)
+        rows = synthetic_pair_rows(rng, n_valid, tra_aux)
+
+        def run(device):
+            def t(a):
+                buf = np.zeros(CLUSTER_ROWS, np.int32)
+                buf[:n_valid] = a
+                return torch.from_numpy(buf).to(device)
+            args = [t(a) for a in rows]
+
+            def go():
+                out = pair_cluster_structure(*args, n_valid, 150, 5,
+                                             CLUSTER_ROWS, break_on_k2)
+                nk = int(out["n_kept"])
+                return out, compact_pair_outputs(out["cid"],
+                                                 out["stream_idx"],
+                                                 max(nk, 1))
+            return go
+
+        cpu_out, cpu_comp = run(torch.device("cpu"))()
+        go = run(torch.device("cuda"))
+        ms, _, _ = time_cuda(lambda: go()[0]["cid"], 5)
+        gpu_out, gpu_comp = go()
+        for k in ("cid", "k1", "k2", "rid", "stream_idx", "n_kept"):
+            if not torch.equal(gpu_out[k].cpu(), cpu_out[k]):
+                raise AssertionError("pair program (%s) differs on CUDA: %s"
+                                     % (name, k))
+            if gpu_out[k].dtype != torch.int32:
+                raise AssertionError("pair output %s is %s, not int32"
+                                     % (k, gpu_out[k].dtype))
+        if not torch.equal(gpu_comp.cpu(), cpu_comp):
+            raise AssertionError("compacted pair output (%s) differs on "
+                                 "CUDA" % name)
+        log("pair program (%s, break_on_k2=%s): %d rows (%d valid, %d "
+            "kept): %.3f ms on the card, equal to the CPU"
+            % (name, break_on_k2, CLUSTER_ROWS, n_valid,
+               int(cpu_out["n_kept"]), ms))
+        res["pair_cluster_ms"][name] = ms
+
+
 def _body(path: str) -> list:
     with open(path) as fh:
         return [l for l in fh.read().splitlines()
@@ -313,13 +399,208 @@ def _recall(truth_bed: str, vcf_path: str) -> tuple:
     return hit, n, gts
 
 
-# (decoder, device) of each e2e run; the first is the main path
-E2E_RUNS = (("native", "cuda"), ("native", "cpu"), ("python", "cuda"))
+ALLTYPES_KINDS = ("deletion", "insertion", "tandem duplication", "inversion",
+                  "reciprocal translocation")
+_ORIENT = ("forward", "reverse")
+
+
+def write_alltypes_bed(path: str, chrom: str, window_bp: int,
+                       spacing: int = 20_000, seed: int = 0) -> int:
+    """A VISOR HACk truth bed (the layout tools/eval_sim.py and
+    tools/simulate.py::replay read) with one record every ``spacing`` bp
+    of ``chrom`` from 50 kb to ``window_bp`` - 50 kb, the five kinds in
+    turn: DEL 100-3,000 bp, INS 100-1,500 bp of random sequence, tandem
+    DUP and INV 1-5 kb, and reciprocal translocations of 2-5 kb to one
+    of two mate chromosomes, strands drawn at random. Returns the row
+    count."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for k, s in enumerate(range(50_000, window_bp - 50_000, spacing)):
+        kind = ALLTYPES_KINDS[k % len(ALLTYPES_KINDS)]
+        if kind == "deletion":
+            e, info = s + int(rng.integers(100, 3_000)), "None"
+        elif kind == "insertion":
+            ln = int(rng.integers(100, 1_500))
+            e = s + 1
+            info = "".join("ACGT"[i] for i in rng.integers(0, 4, ln))
+        elif kind == "tandem duplication":
+            e, info = s + int(rng.integers(1_000, 5_000)), "2"
+        elif kind == "inversion":
+            e, info = s + int(rng.integers(1_000, 5_000)), "None"
+        else:
+            e = s + int(rng.integers(2_000, 5_000))
+            info = "h1:chrT%d:%d:%s:%s" % (
+                1 + k // len(ALLTYPES_KINDS) % 2,
+                int(rng.integers(1_000_000, 50_000_000)),
+                _ORIENT[int(rng.integers(0, 2))],
+                _ORIENT[int(rng.integers(0, 2))])
+        rows.append("%s\t%d\t%d\t%s\t%s\t0\n" % (chrom, s, e, kind, info))
+    with open(path, "w") as fh:
+        fh.writelines(rows)
+    return len(rows)
+
+
+_BND_MATE = re.compile(r"[\[\]]([^:\[\]]+):(\d+)[\[\]]")
+
+
+def alltypes_recall(truth_bed: str, vcf_path: str, tol: int = 1_000):
+    """{svtype: (called, planted)} over a replayed truth bed: a DEL, INS,
+    DUP or INV record counts when a call of its type lies within ``tol``
+    of its start; a reciprocal translocation counts once per breakend
+    pair of its truth expansion (``_bnd_breakends``), when a BND call
+    lies within ``tol`` of pos1 with its mate on chr2 within ``tol`` of
+    pos2."""
+    from cutesv_tpu_torch.tools.simulate import _bnd_breakends
+
+    calls, bnds = {}, []
+    for line in _body(vcf_path):
+        if line.startswith("#"):
+            continue
+        f = line.split("\t")
+        info = dict(kv.split("=", 1) for kv in f[7].split(";") if "=" in kv)
+        if info["SVTYPE"] == "BND":
+            m = _BND_MATE.search(f[4])
+            bnds.append((f[0], int(f[1]), m.group(1), int(m.group(2))))
+        else:
+            calls.setdefault((f[0], info["SVTYPE"]), []).append(int(f[1]))
+    calls = {k: np.sort(v) for k, v in calls.items()}
+    types = {"deletion": "DEL", "insertion": "INS",
+             "tandem duplication": "DUP", "inversion": "INV"}
+    out = {t: [0, 0] for t in ("DEL", "INS", "DUP", "INV", "BND")}
+    for line in open(truth_bed):
+        chrom, s, e, kind, info = line.rstrip("\n").split("\t")[:5]
+        s, e = int(s), int(e)
+        if kind in types:
+            t = types[kind]
+            pos = calls.get((chrom, t), np.zeros(0, np.int64))
+            out[t][1] += 1
+            out[t][0] += bool(len(pos)) and int(np.min(np.abs(pos - s))) \
+                <= tol
+            continue
+        _, chr2, start2, s1, s2 = info.split(":")
+        for p1, p2 in _bnd_breakends(s, e, int(start2), s1, s2):
+            out["BND"][1] += 1
+            out["BND"][0] += any(
+                c == chrom and c2 == chr2 and abs(p - p1) <= tol
+                and abs(q - p2) <= tol for c, p, c2, q in bnds)
+    return {t: tuple(v) for t, v in out.items()}
+
+
+# the e2e runs over the 100 Mb corpus: (tag, decoder, device, extra CLI
+# arguments, environment); the first is the main path (streaming decode
+# by default on a host with 2+ usable cores)
+E2E_RUNS = (
+    ("native_cuda", "native", "cuda", [], {}),
+    ("native_cuda_plain", "native", "cuda", [],
+     {"CUTESV_STREAM_DISPATCH": "0"}),
+    ("native_cpu", "native", "cpu", [], {}),
+    ("python_cuda", "python", "cuda", [], {}),
+)
+# the all-types runs: the main path, its plain version on the CPU, and
+# the host engine (the oracle the JAX package documents as
+# byte-identical)
+ALLTYPES_RUNS = (
+    ("native_cuda", "native", "cuda", [], {}),
+    ("native_cpu", "native", "cpu", [], {}),
+    ("host_engine_cuda", "native", "cuda", ["--engine", "host"], {}),
+)
+ALLTYPES_MB = 64          # tools/simulate.py::replay's window cap
+ALLTYPES_SPACING = 20_000
+FLUSH_BP = 1_000_000_000  # pipeline._FLUSH_BP: one cover launch at most
+
+
+def _drive(tag: str, argv: list, device: str, env: dict) -> dict:
+    """One CLI run with the launch counts set to 0 just before it and
+    read just after; ``env`` is set for the run only."""
+    from cutesv_tpu_torch import cli
+    from cutesv_tpu_torch.ops import cover
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cover.LAUNCHES = 0
+        cover.LAST_SHAPE = (0, 0)
+        t1 = time.time()
+        stats = cli.run(argv + ["--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stats = dict(stats, launches=cover.LAUNCHES,
+                     shape=list(cover.LAST_SHAPE), wall_s=time.time() - t1)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    core = ""
+    if stats["decoder"] == "native":
+        core = (" (decoder walk %.3f s, inflate %.3f core-s, records %.3f "
+                "core-s)" % (stats["walk_s"], stats["inflate_core_s"],
+                             stats["records_core_s"]))
+    log("%s: %d calls; decode %.3f s%s, resolve %.4f s, emit %.4f s, total "
+        "%.2f s; cover launches %d, last at %s"
+        % (tag, stats["n_calls"], stats["decode_s"], core,
+           stats["resolve_s"], stats["emit_s"], stats["wall_s"],
+           stats["launches"], stats["shape"]))
+    if stats.get("streaming"):
+        log("%s streaming: %d early programs + %d full tails validated of "
+            "%d dispatched; native %.3f s, store %.3f s, overlap work "
+            "%.3f s, done tail %.3f s; genotype windows: %d on the host "
+            "(mid-decode tails), %d through the kernel (last launch)"
+            % (tag, stats["early_kernels"], stats["early_tails"],
+               stats["early_dispatched"], stats["native_s"],
+               stats["store_s"], stats["overlap_work_s"],
+               stats["done_tail_s"], stats["tail_windows"],
+               stats["shape"][0]))
+    return stats
+
+
+def _runs(prefix: str, bam: str, fa: str, table, min_support: int) -> dict:
+    """Every run of ``table`` over one corpus: {tag: (vcf path, stats)}."""
+    runs = {}
+    for tag, decoder, device, extra, env in table:
+        out = os.path.join(WORK, "%s_%s.vcf" % (prefix, tag))
+        wd = os.path.join(WORK, "wd_%s_%s" % (prefix, tag))
+        if os.path.exists(out):
+            os.remove(out)
+        os.makedirs(wd, exist_ok=True)
+        for f in os.listdir(wd):
+            os.remove(os.path.join(wd, f))
+        stats = _drive("%s %s" % (prefix, tag),
+                       [bam, fa, out, wd, "--genotype", "-s",
+                        str(min_support), "--decoder", decoder] + extra,
+                       device, env)
+        if stats["decoder"] != decoder:
+            raise AssertionError("%s %s ran the %s decoder"
+                                 % (prefix, tag, stats["decoder"]))
+        runs[tag] = (out, stats)
+    bodies = {tag: _body(out) for tag, (out, _) in runs.items()}
+    first = table[0][0]
+    for tag, body in bodies.items():
+        if body != bodies[first]:
+            raise AssertionError("%s %s VCF body differs from %s"
+                                 % (prefix, tag, first))
+    return runs
+
+
+def _check_main(prefix: str, stats: dict, genome_bp: int) -> None:
+    """The main path went through the cover kernel: at least once, and at
+    most once per 1e9-bp flush."""
+    flushes = -(-genome_bp // FLUSH_BP)
+    if not 1 <= stats["launches"] <= flushes:
+        raise AssertionError(
+            "%s main path launched the cover kernel %d times (allowed 1 to "
+            "%d, one per flush)" % (prefix, stats["launches"], flushes))
+
+
+STAT_KEYS = ("decode_s", "resolve_s", "emit_s", "n_calls", "launches",
+             "shape", "walk_s", "inflate_core_s", "records_core_s",
+             "native_s", "store_s", "overlap_work_s", "done_tail_s",
+             "tail_windows", "early_dispatched", "early_kernels",
+             "early_tails")
 
 
 def phase_e2e(res: dict) -> None:
-    from cutesv_tpu_torch import cli
-    from cutesv_tpu_torch.ops import cover
     from cutesv_tpu_torch.tools.simulate import simulate
 
     os.makedirs(WORK, exist_ok=True)
@@ -329,61 +610,63 @@ def phase_e2e(res: dict) -> None:
                    sv_spacing=50_000, seed=3)
     log("e2e corpus: %.0f Mb, 4 chromosomes, %d reads, simulated in %.1f s"
         % (E2E_MB, sim["n_reads"], time.time() - t0))
-    runs = {}
-    for decoder, device in E2E_RUNS:
-        tag = "%s_%s" % (decoder, device)
-        out = os.path.join(WORK, "calls_%s.vcf" % tag)
-        wd = os.path.join(WORK, "wd_%s" % tag)
-        if os.path.exists(out):
-            os.remove(out)
-        os.makedirs(wd, exist_ok=True)
-        for f in os.listdir(wd):
-            os.remove(os.path.join(wd, f))
-        argv = [sim["bam"], sim["fa"], out, wd, "--genotype", "-s", "5",
-                "--decoder", decoder, "--device", device]
-        cover.LAUNCHES = 0
-        cover.LAST_SHAPE = (0, 0)
-        t1 = time.time()
-        stats = cli.run(argv)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        stats = dict(stats, launches=cover.LAUNCHES,
-                     shape=list(cover.LAST_SHAPE), wall_s=time.time() - t1)
-        if stats["decoder"] != decoder:
-            raise AssertionError("e2e %s ran the %s decoder"
-                                 % (tag, stats["decoder"]))
-        core = ""
-        if decoder == "native":
-            core = (" (decoder walk %.3f s, inflate %.3f core-s, records "
-                    "%.3f core-s)" % (stats["walk_s"], stats["inflate_core_s"],
-                                      stats["records_core_s"]))
-        log("e2e %s: %d calls; decode %.3f s%s, resolve %.4f s, emit %.4f "
-            "s, total %.2f s; cover launches %d, last at %s"
-            % (tag, stats["n_calls"], stats["decode_s"], core,
-               stats["resolve_s"], stats["emit_s"], stats["wall_s"],
-               stats["launches"], stats["shape"]))
-        runs[tag] = (out, stats)
+    runs = _runs("e2e", sim["bam"], sim["fa"], E2E_RUNS, 5)
     main = runs["native_cuda"][1]
-    res["launches"] = main["launches"]
-    res["main_shape"] = main["shape"]
-    if main["launches"] != 1:
-        raise AssertionError("the main path launched the cover kernel %d "
-                             "times, not once" % main["launches"])
-    bodies = {tag: _body(out) for tag, (out, _) in runs.items()}
-    for tag, body in bodies.items():
-        if body != bodies["native_cuda"]:
-            raise AssertionError("%s VCF body differs from native_cuda" % tag)
+    if not main.get("streaming") or runs["native_cuda_plain"][1].get(
+            "streaming"):
+        raise AssertionError("the default run did not stream, or the "
+                             "CUTESV_STREAM_DISPATCH=0 run did")
+    _check_main("e2e", main, int(E2E_MB * 1e6))
+    res["launches_by_path"] = {"e2e_100mb": main["launches"]}
+    res["main_shapes"] = {"e2e_100mb": main["shape"]}
     hit, n, gts = _recall(sim["bed"], runs["native_cuda"][0])
     log("e2e recall: %d / %d planted DEL/INS called (%.4f); GT tally %s; "
         "VCF bodies of %s equal"
         % (hit, n, hit / n, json.dumps(gts, sort_keys=True),
-           ", ".join(bodies)))
+           ", ".join(runs)))
     if n == 0 or hit < 0.99 * n:
         raise AssertionError("recall %d/%d below 99%%" % (hit, n))
-    keys = ("decode_s", "resolve_s", "emit_s", "n_calls", "launches",
-            "walk_s", "inflate_core_s", "records_core_s")
-    res["e2e"] = {tag: {k: st[k] for k in keys if k in st}
+    res["e2e"] = {tag: {k: st[k] for k in STAT_KEYS if k in st}
                   for tag, (_, st) in runs.items()}
+
+
+def phase_alltypes(res: dict) -> None:
+    """The all-types corpus: a grid of DEL, INS, DUP, INV and reciprocal
+    translocations replayed over one 64 Mb window at 20x, called on the
+    main path, on the CPU and with the host engine."""
+    from cutesv_tpu_torch.tools.simulate import replay
+
+    os.makedirs(WORK, exist_ok=True)
+    window_bp = ALLTYPES_MB * 1_000_000
+    bed = os.path.join(WORK, "alltypes_grid.bed")
+    t0 = time.time()
+    n = write_alltypes_bed(bed, "chr1", window_bp, ALLTYPES_SPACING, seed=5)
+    info = replay(os.path.join(WORK, "alltypes"), [bed],
+                  "chr1:0-%d" % window_bp, coverage=20, seed=1)
+    if info["n_sv"] != n or info["n_dropped"]:
+        raise AssertionError("replay kept %d of %d planted records"
+                             % (info["n_sv"], n))
+    log("alltypes corpus: %d Mb window, %d records (%s every %d bp), %d "
+        "reads, %.1f MB BAM, replayed in %.1f s"
+        % (ALLTYPES_MB, n, "/".join(ALLTYPES_KINDS), ALLTYPES_SPACING,
+           info["n_reads"], os.path.getsize(info["bam"]) / 1e6,
+           time.time() - t0))
+    runs = _runs("alltypes", info["bam"], info["fa"], ALLTYPES_RUNS, 5)
+    main = runs["native_cuda"][1]
+    _check_main("alltypes", main, window_bp + 2 * 500_000)
+    res["launches_by_path"]["alltypes"] = main["launches"]
+    res["main_shapes"]["alltypes"] = main["shape"]
+    recall = alltypes_recall(info["bed"], runs["native_cuda"][0])
+    log("alltypes recall (called / planted, type and <= 1 kb; BND per "
+        "breakend pair): %s; VCF bodies of %s equal"
+        % (json.dumps(recall), ", ".join(runs)))
+    for svtype, (hit, total) in recall.items():
+        if total == 0 or hit < 0.99 * total:
+            raise AssertionError("alltypes recall of %s %d/%d below 99%%"
+                                 % (svtype, hit, total))
+    res["alltypes"] = {tag: {k: st[k] for k in STAT_KEYS if k in st}
+                       for tag, (_, st) in runs.items()}
+    res["alltypes_recall"] = recall
 
 
 def phase_build() -> None:
@@ -431,16 +714,25 @@ def main() -> int:
     phase_build()
     phase_k1(res)
     phase_cluster(res)
+    phase_pair(res)
     phase_e2e(res)
+    phase_alltypes(res)
     phase_k1_main(res)
-    # every phase passed (each raises otherwise), so the kernel is equal
+    # every phase passed (each raises otherwise), so the kernel is equal;
+    # ``launches`` is the all-types main path's count (this port's default
+    # discovery path over every SV type), launches_by_path each main
+    # path's
     log(json.dumps({"kernels": [dict(
         name="cover_count", route="cuda",
         source="cutesv_tpu_torch/csrc/cover_count.cu",
         replaces="cutesv_tpu/ops/pallas_sweep.py:28",
-        launches=res["launches"], equal=True, library_ms=None,
-        shape=[K1_WINDOWS, K1_READS], **res["k1"])],
-        "cluster_ms": res["cluster_ms"], "e2e": res["e2e"]}))
+        launches=res["launches_by_path"]["alltypes"],
+        launches_by_path=res["launches_by_path"], equal=True,
+        library_ms=None, shape=[K1_WINDOWS, K1_READS], **res["k1"])],
+        "cluster_ms": res["cluster_ms"],
+        "pair_cluster_ms": res["pair_cluster_ms"], "e2e": res["e2e"],
+        "alltypes": res["alltypes"],
+        "alltypes_recall": res["alltypes_recall"]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

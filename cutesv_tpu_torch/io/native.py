@@ -2,7 +2,8 @@
 
 :func:`decode` runs ``native/bamdecode.cpp`` over a whole BAM and returns
 the same logical content as the Python decoder's signature extraction,
-as numpy SoA arrays. The library is built with ``g++`` at first use
+as numpy SoA arrays; :class:`StreamingDecode` runs it on a native thread
+and snapshots completed chromosomes while it runs. The library is built with ``g++`` at first use
 (``ops/build.py::decoder_library``); a failed build or load raises, and
 nothing here falls back to the Python reader.
 
@@ -47,6 +48,24 @@ def get_lib() -> ctypes.CDLL:
     lib.bamdecode_get.argtypes = [vp, ctypes.c_int, ctypes.POINTER(vp),
                                   ctypes.POINTER(i64)]
     lib.bamdecode_free.argtypes = [vp]
+    # streaming decode (StreamingDecode)
+    lib.bamdecode_start.restype = vp
+    lib.bamdecode_start.argtypes = lib.bamdecode_run.argtypes
+    lib.bamdecode_poll.restype = ctypes.c_int32
+    lib.bamdecode_poll.argtypes = [vp]
+    lib.bamdecode_n_refs.restype = ctypes.c_int32
+    lib.bamdecode_n_refs.argtypes = [vp]
+    lib.bamdecode_join.restype = ctypes.c_int
+    lib.bamdecode_join.argtypes = [vp]
+    lib.bamdecode_snapshot.restype = i64
+    lib.bamdecode_snapshot.argtypes = [vp, ctypes.c_int, ctypes.c_int32]
+    lib.bamdecode_snapshot_get.restype = ctypes.c_int
+    lib.bamdecode_snapshot_get.argtypes = [vp, ctypes.c_int,
+                                           ctypes.POINTER(vp),
+                                           ctypes.POINTER(i64)]
+    lib.bamdecode_ins_seq_spans.restype = i64
+    lib.bamdecode_ins_seq_spans.argtypes = [
+        vp, ctypes.POINTER(i64), ctypes.POINTER(i64), i64, ctypes.c_char_p]
     _lib = lib
     return lib
 
@@ -234,3 +253,119 @@ def decode(path: str, cfg, bed_ids=None, reference=None) -> NativeDecode:
         return _extract(lib, handle, path)
     finally:
         lib.bamdecode_free(handle)
+
+
+_SNAP_FIELDS = ("pos", "length", "name_id", "name_lrank", "seq_len",
+                "seq_lrank", "seq_off")
+
+
+class StreamingDecode:
+    """Decode on a native thread; poll per-chromosome completion and
+    snapshot completed chromosomes' rows mid-run, then join for the full
+    NativeDecode. Snapshot name/seq ranks are LOCAL to the snapshot
+    (order-isomorphic to the final global ranks restricted to the same
+    rows); callers must validate a snapshot against the final store
+    before trusting work derived from it (a later read's SA tag can add
+    rows to an already-passed chromosome). Use as a context manager or
+    call :meth:`free`; freeing joins the decode thread."""
+
+    DONE = 2 ** 31 - 1  # INT32_MAX progress sentinel
+
+    def __init__(self, path: str, cfg, bed_ids=None):
+        self._lib = get_lib()
+        self._path = path
+        params, ref_arg, bc_p, bs_p, be_p, n_bed, ka = _call_args(
+            cfg, bed_ids, None)
+        self._keepalive = ka
+        self._handle = self._lib.bamdecode_start(
+            path.encode(), ref_arg, params, bc_p, bs_p, be_p, n_bed)
+
+    def poll(self) -> int:
+        """refID currently being decoded (chroms below it are complete
+        modulo late SA rows); DONE when the run has finished."""
+        return int(self._lib.bamdecode_poll(self._handle))
+
+    def n_refs(self) -> int:
+        """Header reference count; valid once poll() returned >= 0
+        (including DONE)."""
+        return int(self._lib.bamdecode_n_refs(self._handle))
+
+    _SNAP_TYPE = {"DEL": 0, "INS": 1, "DUP": 2, "INV": 3, "TRA": 4,
+                  "CEN": 5}
+    # (field_id, name) per snapshot type; DUP reuses pos/length for
+    # (p1, p2), INV adds the strand, TRA the bnd type + mate chrom id,
+    # CEN is the per-chromosome read census
+    _SNAP_LAYOUT = {
+        0: tuple(enumerate(_SNAP_FIELDS[:4])),
+        1: tuple(enumerate(_SNAP_FIELDS)),
+        2: tuple(enumerate(_SNAP_FIELDS[:4])),
+        3: tuple(enumerate(_SNAP_FIELDS[:4])) + ((4, "strand"),),
+        4: tuple(enumerate(_SNAP_FIELDS[:4])) + ((4, "bnd_type"),
+                                                 (6, "chr2")),
+        5: ((0, "start"), (1, "end"), (4, "is_primary"), (2, "name")),
+    }
+
+    def snapshot(self, sv_type: str, chrom_id: int) -> Dict[str,
+                                                            np.ndarray]:
+        """Copy one chromosome's rows seen so far. sv_type: DEL / INS /
+        DUP / INV / TRA / CEN. Returns int64 arrays keyed per type (pos
+        is INS pos*2 / DUP p1 / INV b1 / TRA p1; length is INS len /
+        DUP p2 / INV b2 / TRA p2)."""
+        t = self._SNAP_TYPE[sv_type]
+        n = self._lib.bamdecode_snapshot(self._handle, t, chrom_id)
+        out = {}
+        for i, name in self._SNAP_LAYOUT[t]:
+            data = ctypes.c_void_p()
+            ln = ctypes.c_int64()
+            rc = self._lib.bamdecode_snapshot_get(
+                self._handle, i, ctypes.byref(data), ctypes.byref(ln))
+            if rc != 0:
+                raise RuntimeError("bamdecode_snapshot_get(%d) failed" % i)
+            if ln.value == 0:
+                out[name] = np.empty(0, np.int64)
+            else:
+                # single copy (see _fetch): these run inside the
+                # mid-decode poll loop, competing with the inflate pool
+                view = np.ctypeslib.as_array(
+                    ctypes.cast(data, ctypes.POINTER(ctypes.c_int64)),
+                    shape=(ln.value,))
+                out[name] = view.copy()
+        if any(len(v) != n for v in out.values()):
+            raise RuntimeError("bamdecode_snapshot: column lengths differ "
+                               "from its row count %d" % n)
+        return out
+
+    def ins_seq_spans(self, offs, lens) -> bytes:
+        """Copy INS sequence blob spans (safe mid-decode: the read takes
+        the decoder's merge lock). Returns the concatenated bytes."""
+        offs = np.ascontiguousarray(offs, np.int64)
+        lens = np.ascontiguousarray(lens, np.int64)
+        total = int(lens.sum())
+        out = np.empty(max(total, 1), np.uint8)
+        w = self._lib.bamdecode_ins_seq_spans(
+            self._handle,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(offs), out.ctypes.data_as(ctypes.c_char_p))
+        if w != total:
+            raise RuntimeError("bamdecode_ins_seq_spans(%d != %d)"
+                               % (w, total))
+        return out[:total].tobytes()
+
+    def join(self) -> NativeDecode:
+        """Wait for the decode thread, check status, extract everything."""
+        status = self._lib.bamdecode_join(self._handle)
+        _check_status(status, self._path,
+                      _err_detail(self._lib, self._handle))
+        return _extract(self._lib, self._handle, self._path)
+
+    def free(self):
+        if self._handle is not None:
+            self._lib.bamdecode_free(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.free()

@@ -1,9 +1,10 @@
-"""Device (PyTorch/CUDA) resolvers for DEL/INS.
+"""Device (PyTorch/CUDA) resolvers for DEL/INS, DUP/INV and TRA.
 
 Splits the work device-first:
   * device — the O(N log N) integer work over the full signature stream:
     sorting, gap clustering, per-read dedup, support gates, and the allele
-    stream ordering (ops/indel_cluster.py);
+    stream ordering (ops/indel_cluster.py); the DUP/INV/TRA gap
+    clusters and support gates (ops/pair_cluster.py);
   * host  — per-allele f64 finalization (means of the closest-to-mean
     members, CIPOS/CILEN), which must match numpy's f64 semantics exactly
     and touches only ~1e3-1e5 small slices.
@@ -18,15 +19,21 @@ models/host.py and to the JAX package's models/device.py.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from cutesv_tpu_torch.genotype import cal_CIPOS
-from cutesv_tpu_torch.models.host import finalize_indel_allele
+from cutesv_tpu_torch.models.host import (_equality_codes,
+                                          _tra_emit_clusters,
+                                          dup_cluster_emit,
+                                          finalize_indel_allele,
+                                          inv_cluster_emit)
 from cutesv_tpu_torch.ops.indel_cluster import (compact_cluster_outputs,
                                                 indel_cluster_structure)
+from cutesv_tpu_torch.ops.pair_cluster import (compact_pair_outputs,
+                                               pair_cluster_structure)
 from cutesv_tpu_torch.ops.segments import padded_size
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
@@ -151,15 +158,28 @@ def _cluster_stream_dispatch(stream: IndelStream, read_count: int,
     if n == 0:
         return None
     cap = padded_size(n)
-    pad = cap - n
-
-    def padded(a):
-        return torch.from_numpy(np.concatenate(
-            [a.astype(np.int32), np.zeros(pad, np.int32)])).to(device)
-
     return indel_cluster_structure(
-        padded(stream.pos), padded(stream.length), padded(stream.rid),
-        n, bias, read_count, cap)
+        _upload(stream.pos, cap, device), _upload(stream.length, cap, device),
+        _upload(stream.rid, cap, device), n, bias, read_count, cap)
+
+
+def _upload(a, cap: int, device):
+    """``a`` as a zero-padded int32 tensor of length ``cap`` on ``device``.
+    On CUDA the rows are staged in pinned host memory (filled through a
+    numpy view, so no CPU torch op runs) and copied ``non_blocking``: the
+    dispatch does not wait for the transfer, and the caching host
+    allocator keeps the staging buffer until the copy has run."""
+    a = np.asarray(a)
+    n = len(a)
+    if device.type != "cuda":
+        buf = np.zeros(cap, np.int32)
+        buf[:n] = a
+        return torch.from_numpy(buf)
+    host = torch.empty(cap, dtype=torch.int32, pin_memory=True)
+    view = host.numpy()
+    view[:n] = a
+    view[n:] = 0
+    return host.to(device, non_blocking=True)
 
 
 def _copy_to_host(t):
@@ -183,31 +203,50 @@ def _host(pending) -> np.ndarray:
     return host.numpy()
 
 
+def _handles(state) -> list:
+    """The program handles a resolver state holds: the jobs of a DEL/INS
+    multi-state, a raw program output (a streaming dispatch), or the
+    payload of a ``("pending", handle)`` pair state or a
+    ``("pending", handle, arrays)`` TRA state."""
+    if state is None:
+        return []
+    if isinstance(state, dict):
+        return [h for _, _, h in state["jobs"]] if "jobs" in state \
+            else [state]
+    if isinstance(state, tuple) and len(state) in (2, 3) \
+            and state[0] == "pending":
+        return [state[1]]
+    return []
+
+
 def prefetch_counts(*states):
     """Start the device->host copies of every dispatched program's
     ``n_kept`` scalar BEFORE the compact phases block on them one program
-    at a time, so the DEL and INS waits overlap instead of queueing."""
+    at a time, so the waits overlap instead of queueing."""
     for st in states:
-        if st is None:
-            continue
-        for _, _, h in st["jobs"]:
+        for h in _handles(st):
             if isinstance(h, dict) and "_n_kept_host" not in h:
                 h["_n_kept_host"] = _copy_to_host(h["n_kept"])
 
 
+def _start_host_copies(comp: dict) -> dict:
+    """Start (once) the device->host copies of every tensor of a compacted
+    output; returns the pending copies by key."""
+    if "_host" not in comp:
+        comp["_host"] = {k: _copy_to_host(v) for k, v in comp.items()
+                         if torch.is_tensor(v)}
+    return comp["_host"]
+
+
 def prefetch_to_host(*states):
     """Start the device->host copies of every compacted output held by
-    the given resolver states; the finish phase then finds the rows on
-    the host, and the copies overlap host emission."""
+    the given resolver states (DEL/INS multi-states, pair and TRA
+    states); the finish phase then finds the rows on the host, and the
+    copies overlap host emission."""
     for st in states:
-        if st is None:
-            continue
-        for _, _, h in st["jobs"]:
-            if isinstance(h, tuple) and h[1] is not None \
-                    and "_host" not in h[1]:
-                comp = h[1]
-                comp["_host"] = {k: _copy_to_host(comp[k])
-                                 for k in ("pos", "length", "packed")}
+        for h in _handles(st):
+            if isinstance(h, tuple) and h[1] is not None:
+                _start_host_copies(h[1])
 
 
 def _cluster_stream_compact(out):
@@ -239,9 +278,7 @@ def _cluster_stream_fetch(out):
     nk, comp = out
     if nk == 0:
         return None
-    pending = comp.get("_host") or {k: _copy_to_host(comp[k])
-                                    for k in ("pos", "length", "packed")}
-    got = {k: _host(v) for k, v in pending.items()}
+    got = {k: _host(v) for k, v in _start_host_copies(comp).items()}
     # int32 on the device with the flag in the sign bit: the uint32 view
     # is the JAX package's packed layout
     packed = got["packed"][:nk].view(np.uint32)
@@ -521,6 +558,205 @@ def _emit_ins(cid, pos, length, sidx, stream, chrom, threshold_gloab,
 
 
 # ---------------------------------------------------------------------------
+# DUP / INV / TRA device resolvers (ops/pair_cluster.py + host emission)
+# ---------------------------------------------------------------------------
+
+def _pair_cluster_start(k1, k2, aux, keys, read_count, bias, break_on_k2,
+                        device):
+    """Upload the rows and enqueue the pair-cluster program on ``device``
+    (asynchronous on CUDA); fetch with :func:`_pair_cluster_finish`.
+    Splitting dispatch from fetch lets the DUP, INV and TRA programs run
+    on the device while DEL/INS emission runs on the host."""
+    n = len(k1)
+    if n == 0:
+        return None
+    _, rid = np.unique(np.asarray(keys), return_inverse=True)
+    cap = padded_size(n)
+    return pair_cluster_structure(
+        _upload(k1, cap, device), _upload(k2, cap, device),
+        _upload(aux, cap, device), _upload(rid, cap, device), n, bias,
+        read_count, cap, bool(break_on_k2))
+
+
+def _pair_cluster_compact(out):
+    """Read n_kept and enqueue the pair-output compaction; returns
+    (n_kept, {"packed": tensor})."""
+    if out is None or isinstance(out, tuple):
+        return out
+    pending = out.get("_n_kept_host") or _copy_to_host(out["n_kept"])
+    nk = int(_host(pending))
+    if nk == 0:
+        return (0, None)
+    cap_out = min(padded_size(nk), int(out["cid"].shape[0]))
+    return (nk, dict(packed=compact_pair_outputs(out["cid"],
+                                                 out["stream_idx"],
+                                                 cap_out)))
+
+
+def _pair_cluster_finish(out):
+    """Fetch a dispatched pair-cluster program; returns slices of
+    program-order row indices (stream_idx) per kept cluster. Accepts the
+    raw output or the (n_kept, packed) pair from
+    :func:`_pair_cluster_compact`."""
+    if out is None:
+        return []
+    if not isinstance(out, tuple):
+        out = _pair_cluster_compact(out)
+    nk, comp = out
+    if nk == 0:
+        return []
+    packed = _host(_start_host_copies(comp)["packed"])[:nk].view(np.uint32)
+    sidx = (packed & np.uint32(0x7FFFFFFF)).astype(np.int64)
+    bounds = np.flatnonzero(packed[1:] >> np.uint32(31)) + 1
+    slices = []
+    lo = 0
+    for hi in list(bounds) + [nk]:
+        slices.append(sidx[lo:int(hi)])
+        lo = int(hi)
+    return slices
+
+
+def resolve_pair_start(sigs: Sequence, is_inv: bool, read_count: int,
+                       max_cluster_bias: int, device=None):
+    """Enqueue the DUP/INV pair-cluster program for one chromosome without
+    fetching. Returns opaque state for :func:`resolve_pair_finish`."""
+    if is_inv:
+        aux = np.fromiter((0 if r[0] == "++" else 1 for r in sigs),
+                          np.int64, len(sigs))
+        k1 = [r[1] for r in sigs]
+        k2 = [r[2] for r in sigs]
+        keys = [r[3] for r in sigs]
+    else:
+        aux = np.zeros(len(sigs), np.int64)
+        k1 = [r[0] for r in sigs]
+        k2 = [r[1] for r in sigs]
+        keys = [r[2] for r in sigs]
+    return ("pending", _pair_cluster_start(
+        k1, k2, aux, keys, read_count, max_cluster_bias, is_inv,
+        resolve_device(device)))
+
+
+def resolve_pair_compact(state):
+    """Read n_kept and enqueue the output compaction of a pending pair
+    state (run before prefetch_to_host so host copies move packed rows)."""
+    return ("pending", _pair_cluster_compact(state[1]))
+
+
+def resolve_pair_finish(state, sigs: Sequence, is_inv: bool, chrom: str,
+                        read_count: int, max_cluster_bias: int,
+                        sv_size: int, max_size: int, action: bool,
+                        names: Optional[Sequence[str]] = None):
+    """Fetch a dispatched pair-cluster program and emit candidates;
+    identical outputs to models.host.resolve_dup / resolve_inv."""
+    slices = _pair_cluster_finish(state[1])
+    render = (lambda k: names[k]) if names is not None else (lambda k: k)
+    candidates: List[list] = []
+    gt_jobs: List[dict] = []
+    emit = inv_cluster_emit if is_inv else dup_cluster_emit
+    for sl in slices:
+        cluster = [sigs[int(i)] for i in sl]
+        emit(cluster, chrom, read_count, max_cluster_bias, sv_size,
+             max_size, action, render, candidates, gt_jobs)
+    return candidates, gt_jobs
+
+
+def resolve_tra_start(sigs: Sequence, read_count: int,
+                      max_cluster_bias: int, device=None):
+    """Enqueue the TRA/BND cluster program for one chromosome
+    (resolution_TRA, cuteSV_resolveTRA.py:30-105, clustering half).
+
+    TRA clustering is the pair-cluster program with k1=pos1, k2=pos2 and
+    aux encoding (chr2, bnd_type): the reference breaks clusters on a
+    chr2 change, a type change or a pos1 gap, gates on raw size AND
+    distinct support, and walks each cluster p2-sorted, which is the
+    program's contract. Returns opaque state for
+    :func:`resolve_tra_finish`."""
+    n = len(sigs)
+    if n == 0:
+        return None
+    ty = np.fromiter((ord(r[0][0]) for r in sigs), np.int64, n)
+    p1 = np.fromiter((r[1] for r in sigs), np.int64, n)
+    p2 = np.fromiter((r[3] for r in sigs), np.int64, n)
+    c2 = _equality_codes([r[2] for r in sigs])
+    rid = _equality_codes([r[4] for r in sigs])
+    aux = c2 * 4 + (ty - ord("A"))
+    return ("pending", _pair_cluster_start(
+        p1, p2, aux, rid, read_count, max_cluster_bias, False,
+        resolve_device(device)), (p1, p2, rid))
+
+
+def resolve_tra_compact(state):
+    """Read n_kept and enqueue the output compaction of a pending TRA
+    state (mirror of :func:`resolve_pair_compact`)."""
+    if state is None:
+        return None
+    _, payload, arrs = state
+    return ("pending", _pair_cluster_compact(payload), arrs)
+
+
+def resolve_tra_finish(state, sigs: Sequence, chr_1: str, read_count: int,
+                       overlap_size: float, max_cluster_bias: int,
+                       tables, chrom_lengths, action: bool, gt_round: int,
+                       names: Optional[Sequence[str]] = None,
+                       jobs_out: Optional[list] = None):
+    """Fetch a dispatched TRA cluster program and emit candidates;
+    identical outputs to models.host.resolve_tra (the emission half is
+    the shared _tra_emit_clusters). With ``jobs_out`` the genotype is
+    left to the caller's batched cover pass (pipeline._tra_cover_prepare)
+    and the jobs are appended there."""
+    if state is None:
+        return []
+    _, payload, (p1, p2, rid) = state
+    slices = _pair_cluster_finish(payload)
+    if not slices:
+        return []
+    order_rows = np.concatenate(slices)
+    lens = np.fromiter((len(s) for s in slices), np.int64, len(slices))
+    cids = np.repeat(np.arange(len(slices), dtype=np.int64), lens)
+    return _tra_emit_clusters(
+        sigs, order_rows, p1[order_rows], p2[order_rows], rid[order_rows],
+        cids, lens, chr_1, read_count, overlap_size, max_cluster_bias,
+        tables, chrom_lengths, action, gt_round, names, jobs_out=jobs_out)
+
+
+def resolve_tra_device(sigs: Sequence, chr_1: str, read_count: int,
+                       overlap_size: float, max_cluster_bias: int,
+                       tables, chrom_lengths, action: bool, gt_round: int,
+                       names: Optional[Sequence[str]] = None, device=None):
+    """Device counterpart of models.host.resolve_tra; identical outputs."""
+    state = resolve_tra_start(sigs, read_count, max_cluster_bias, device)
+    return resolve_tra_finish(state, sigs, chr_1, read_count, overlap_size,
+                              max_cluster_bias, tables, chrom_lengths,
+                              action, gt_round, names)
+
+
+def resolve_dup_device(sigs: Sequence, chrom: str, read_count: int,
+                       max_cluster_bias: int, sv_size: int, max_size: int,
+                       action: bool, names: Optional[Sequence[str]] = None,
+                       device=None):
+    """Device counterpart of models.host.resolve_dup; identical outputs.
+    Program rows arrive sorted by pos2 (stable), so the host emission's
+    stable re-sort is a no-op."""
+    state = resolve_pair_start(sigs, False, read_count, max_cluster_bias,
+                               device)
+    return resolve_pair_finish(state, sigs, False, chrom, read_count,
+                               max_cluster_bias, sv_size, max_size, action,
+                               names)
+
+
+def resolve_inv_device(sigs: Sequence, chrom: str, read_count: int,
+                       max_cluster_bias: int, sv_size: int, max_size: int,
+                       action: bool, names: Optional[Sequence[str]] = None,
+                       device=None):
+    """Device counterpart of models.host.resolve_inv; identical outputs."""
+    state = resolve_pair_start(sigs, True, read_count, max_cluster_bias,
+                               device)
+    return resolve_pair_finish(state, sigs, True, chrom, read_count,
+                               max_cluster_bias, sv_size, max_size, action,
+                               names)
+
+
+# ---------------------------------------------------------------------------
 # genome-batched DEL/INS resolution: one kernel dispatch covers many
 # chromosomes. Positions are offset into disjoint ranges (separated by more
 # than max_cluster_bias) so clusters can never span chromosomes; batches
@@ -571,16 +807,29 @@ class _Facade:
 
 
 def resolve_indel_multi_start(streams, is_ins: bool, read_count: int,
-                              max_cluster_bias: int, device=None):
+                              max_cluster_bias: int, device=None,
+                              early=None):
     """Phase 1 of the genome-batched DEL/INS resolver: enqueue the cluster
     program for every int32-safe batch on ``device``. Returns opaque
     state for :func:`resolve_indel_multi_finish`. Enqueueing both SV
     types before reading either's ``n_kept`` overlaps device compute
-    with host work."""
+    with host work. ``early``: {chrom: program handle} dispatched during
+    the streaming decode (validated by build_store_native); those
+    chromosomes become singleton jobs that reuse the handles."""
     device = resolve_device(device)
     out = {}
     jobs = []
     streams = [(c, _as_stream(s, is_ins)) for c, s in streams]
+    if early:
+        rest = []
+        for c, s in streams:
+            h = early.get(c)
+            if h is not None and len(s):
+                members = [(c, s, 0)]
+                jobs.append((members, _Facade(members), h))
+            else:
+                rest.append((c, s))
+        streams = rest
     for batch in _chrom_batches(streams, max_cluster_bias):
         members = [(c, s, off) for c, s, off in batch if len(s)]
         for c, s, off in batch:

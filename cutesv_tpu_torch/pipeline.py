@@ -1,12 +1,15 @@
 """End-to-end calling pipeline on one GPU.
 
 BAM decode (the C++ decoder by default, the Python reader on request) ->
-signature store -> resolution (DEL/INS on the device, DUP/INV/TRA on the
-host oracle) -> genotype fill (one batched pass of the CUDA cover-count
-kernel per int32-safe flush) -> VCF. The slice of
-``cutesv_tpu/pipeline.py`` the port carries so far; whatever lies
-outside it raises NotImplementedError naming its ROADMAP.md item rather
-than quietly taking another path.
+signature store -> resolution (DEL/INS and DUP/INV/TRA clustering on the
+device, emission on the host) -> genotype fill (one batched pass of the
+CUDA cover-count kernel per int32-safe flush, TRA windows included) ->
+VCF. On the device engine the native decode streams: each chromosome's
+cluster programs are dispatched as soon as the decoder finishes it, and
+its DEL/INS emission and genotype can run under the remaining decode.
+The slice of ``cutesv_tpu/pipeline.py`` the port carries so far;
+whatever lies outside it raises NotImplementedError naming its
+ROADMAP.md item rather than quietly taking another path.
 """
 from __future__ import annotations
 
@@ -21,8 +24,10 @@ import numpy as np
 
 from cutesv_tpu_torch import extract, sigstore, vcf
 from cutesv_tpu_torch.config import Config
-from cutesv_tpu_torch.genotype import (assign_gt_del_ins, cover_counts,
-                                       gl_table, support_inter_counts)
+from cutesv_tpu_torch.genotype import (assign_gt_del_ins, call_gt_tra,
+                                       cover_counts, gl_table,
+                                       support_inter_counts,
+                                       threshold_ref_count)
 from cutesv_tpu_torch.io.bam import BamReader
 from cutesv_tpu_torch.io.fasta import FastaFile
 from cutesv_tpu_torch.models import device as device_models
@@ -49,8 +54,6 @@ def check_slice(cfg: Config) -> None:
         raise _not_ported("--distributed", 12)
     if cfg.profile:
         raise _not_ported("--profile", 13)
-    if os.environ.get("CUTESV_STREAM_DISPATCH") == "1":
-        raise _not_ported("streaming decode dispatch", 10)
 
 
 def load_bed_regions(path: Optional[str]) -> Optional[Dict[str, list]]:
@@ -73,27 +76,323 @@ def load_bed_regions(path: Optional[str]) -> Optional[Dict[str, list]]:
     return regions
 
 
-def decode_bam(cfg: Config):
+def decode_bam(cfg: Config, device=None):
     """Stream the BAM once, extracting signatures + read census.
 
     ``cfg.decoder`` "native" or "auto": the C++ decoder (native/), built
     with g++ at first use; a failed build or load raises, with no
-    fallback. "python": the pure-Python reader, the behavioral oracle.
-    The store carries ``decode_breakdown``: which decoder ran and, for
-    the native one, its record-walk wall and inflate / record-parse
-    core-seconds."""
+    fallback. With the device engine the native decode streams
+    (:func:`_stream_dispatch_ok`) and dispatches cluster programs on
+    ``device`` while it runs. "python": the pure-Python reader, the
+    behavioral oracle. The store carries ``decode_breakdown``: which
+    decoder ran and, for the native one, its record-walk wall and
+    inflate / record-parse core-seconds (plus the streaming split)."""
     with open(cfg.input, "rb") as probe:
         if probe.read(4) == b"CRAM":
             raise _not_ported("CRAM input", 15)
     if cfg.decoder in ("native", "auto"):
-        return _decode_bam_native(cfg)
+        return _decode_bam_native(cfg, device)
     if cfg.decoder != "python":
         raise ValueError("unknown decoder %r (use native, python or auto)"
                          % cfg.decoder)
     return _decode_bam_python(cfg)
 
 
-def _decode_bam_native(cfg: Config):
+def _n_cores() -> int:
+    """Cores actually usable by this process: cgroup/taskset affinity
+    (len(sched_getaffinity)) where available, os.cpu_count otherwise —
+    a container pinned to 2 CPUs on a 64-core host must take the
+    2-core tuning paths, not the wide-host ones."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except AttributeError:  # non-Linux
+        return os.cpu_count() or 1
+
+
+def _stream_dispatch_ok(cfg: Config) -> bool:
+    """Streaming decode->dispatch overlap for single-process device-engine
+    BAM runs: cluster programs for completed chromosomes launch while
+    later chromosomes still decode. CUTESV_STREAM_DISPATCH=0 forces it
+    off; CUTESV_STREAM_DISPATCH=1 bypasses only the core-count heuristic
+    (the snapshot sort/pad/upload work contends with the inflate pool
+    when there is a single core); the structural gate (device engine,
+    non-distributed, no force calling) always applies. CRAM input is
+    refused before this point (ROADMAP item 15)."""
+    forced = os.environ.get("CUTESV_STREAM_DISPATCH")
+    if forced is not None:
+        if forced != "1":
+            return False
+    elif _n_cores() < 2:
+        return False
+    return (cfg.engine in ("device", "auto") and not cfg.distributed
+            and not cfg.Ivcf)
+
+
+class _NativeBlobView:
+    """Lazy view over the native decoder's (append-only) INS sequence
+    blob: slicing copies the span under the decoder's merge lock, so
+    mid-decode emission can render ALT sequences without materializing
+    the blob."""
+
+    def __init__(self, sd):
+        self._sd = sd
+
+    def __getitem__(self, sl):
+        return self._sd.ins_seq_spans([sl.start], [sl.stop - sl.start])
+
+    def spans(self, offs, lens):
+        """Batched span read (one lock acquisition + ctypes call)."""
+        return self._sd.ins_seq_spans(offs, lens)
+
+
+def _stream_tail_default(n_cores: int, n_refs: int) -> bool:
+    """Whether the FULL mid-decode tail (emission + genotype) defaults
+    on: at 2 cores with few contigs the tail steals more from the inflate
+    workers than the shortened post-decode tail returns; at many contigs
+    the serial post-decode tail dominates and the overlap wins; at >= 4
+    cores the tail runs beside the inflate pool."""
+    return n_cores >= 4 or n_refs >= 8
+
+
+def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
+                      nk_comp, census_cache, timing):
+    """Mid-decode per-chromosome tail for DEL/INS: fetch the cluster
+    program's rows, run host emission and (under --genotype) the
+    cover/genotype fill, all under the remaining chromosomes' decode.
+    Read identities are the decoder's interned name ids (one consistent
+    space with the census snapshot); candidate chrom fields carry a
+    placeholder patched after join. Byte-identical to the post-decode
+    path (same _emit_* / _del_ins_apply functions; the host cover counts
+    equal the kernel's). Results are only trusted once the chromosome's
+    fingerprint validates against the final arrays."""
+    is_ins = svtype == "INS"
+    res = device_models._cluster_stream_fetch(nk_comp)
+    if res is None:
+        return ([], [])
+    cid, pos, length, sidx = res
+    if is_ins:
+        live = ~(((cols["pos"] >> 1) == 0) & (cols["length"] == 0))
+        stream = device_models.IndelStream(
+            (cols["pos"] >> 1)[live], cols["length"][live],
+            cols["name_id"][live], seq_len=cols["seq_len"][live],
+            seq_blob=_NativeBlobView(sd), seq_off=cols["seq_off"][live])
+    else:
+        live = ~((cols["pos"] == 0) & (cols["length"] == 0))
+        stream = device_models.IndelStream(
+            cols["pos"][live], cols["length"][live], cols["name_id"][live])
+    emit = device_models._emit_ins if is_ins else device_models._emit_del
+    thr = (cfg.diff_ratio_merging_INS if is_ins
+           else cfg.diff_ratio_merging_DEL)
+    bias = (cfg.max_cluster_bias_INS if is_ins
+            else cfg.max_cluster_bias_DEL)
+    cands, jobs = emit(cid, pos, length, sidx, stream, None, thr, bias,
+                       min(cfg.min_support, 5), cfg.remain_reads_ratio,
+                       cfg.genotype, need_names=False)
+    if cfg.genotype and cands:
+        census = census_cache.get(c)
+        if census is None:
+            s = sd.snapshot("CEN", c)
+            census = census_cache[c] = dict(
+                start=s["start"], end=s["end"],
+                is_primary=s["is_primary"].astype(np.int8),
+                name=s["name"])
+        if len(census["start"]) == 0:
+            return ([], [])  # the batched pass's empty-chrom contract
+        prim = census["is_primary"] == 1
+        covers = cover_counts([j["window"] for j in jobs],
+                              census["start"][prim], census["end"][prim])
+        timing["tail_windows"] += len(jobs)
+        _del_ins_apply(None, cands, jobs, census, [covers])
+    return (cands, [])
+
+
+def _streaming_poll_loop(sd, cfg: Config, device):
+    """Poll/dispatch loop of the streaming decode: as each chromosome
+    completes, snapshot its rows, sort/dedup them with the store's exact
+    keys and dispatch its cluster programs on ``device`` (plus, where
+    eligible, the full mid-decode DEL/INS tail). Runs until the decode
+    thread reports DONE; the caller joins and validates fingerprints.
+    A failing dispatch or tail raises: there is no fallback to a plain
+    decode.
+
+    Returns (handles, fingerprints, early_results, timing), the first
+    three keyed (svtype, chrom_id)."""
+    handles: Dict[tuple, object] = {}
+    fingerprints: Dict[tuple, dict] = {}
+    early_results: Dict[tuple, tuple] = {}
+    census_cache: Dict[int, dict] = {}
+    # the full mid-decode tail (emission + genotype) needs rendered read
+    # names nowhere; --report_readid does, so it keeps the program-only
+    # overlap. CUTESV_STREAM_TAIL=1/0 forces the full tail on/off;
+    # "force" also runs it for the final batch (small inputs decode in
+    # one poll, so nothing completes mid-run). The default is
+    # _stream_tail_default (n_refs is header-derived and valid only once
+    # poll() >= 0, so it resolves lazily below).
+    tail_env = os.environ.get("CUTESV_STREAM_TAIL")
+    tail_force = tail_env == "force"
+    tail_ok = None
+    tail_pref = not cfg.report_readid and tail_env != "0"
+    tail_forced_on = tail_env in ("1", "force")
+    done = set()
+    # python work done INSIDE the decode window, split into the part
+    # concurrent with the native walk (it takes host CPU from the
+    # inflate workers) and the DONE-batch part after the walk finished;
+    # tail_windows counts the genotype windows the mid-decode tails
+    # counted on the host
+    timing = {"overlap_work_s": 0.0, "done_tail_s": 0.0, "tail_windows": 0}
+    while True:
+        t_body0 = time.time()
+        p = sd.poll()
+        finished = p == sd.DONE
+        if tail_ok is None and (finished or p >= 0):
+            tail_ok = tail_pref and (
+                tail_forced_on
+                or _stream_tail_default(_n_cores(), sd.n_refs()))
+        if finished:
+            # the run finished: every remaining chromosome's rows are
+            # final, so snapshot them too — their prepared columns
+            # become the store streams (no global re-sort) and their
+            # cluster programs dispatch before the store is built
+            p = sd.n_refs()
+        pending = []
+        for c in range(0, p):
+            if c in done:
+                continue
+            done.add(c)
+            for svtype, is_ins, bias in (
+                    ("DEL", False, cfg.max_cluster_bias_DEL),
+                    ("INS", True, cfg.max_cluster_bias_INS)):
+                snap = sd.snapshot(svtype, c)
+                if len(snap["pos"]) == 0:
+                    continue
+                fp, disp = sigstore.prepare_snapshot(snap, is_ins)
+                stream = device_models.IndelStream(
+                    disp["pos"], disp["length"], disp["rid"])
+                handle = device_models._cluster_stream_dispatch(
+                    stream, cfg.min_support, bias, device)
+                pending.append((svtype, c, "indel", handle))
+                fingerprints[(svtype, c)] = fp
+            for svtype, is_inv, bias in (
+                    ("DUP", False, cfg.max_cluster_bias_DUP),
+                    ("INV", True, cfg.max_cluster_bias_INV)):
+                snap = sd.snapshot(svtype, c)
+                if len(snap["pos"]) == 0:
+                    continue
+                fp, disp = sigstore.prepare_snapshot_pair(svtype, snap)
+                handle = device_models._pair_cluster_start(
+                    disp["k1"], disp["k2"], disp["aux"], disp["keys"],
+                    cfg.min_support, bias, is_inv, device)
+                pending.append((svtype, c, "pair", handle))
+                fingerprints[(svtype, c)] = fp
+        if finished and pending:
+            # decode is over, so blocking reads are no longer hidden:
+            # start every n_kept copy before the compact phase blocks on
+            # any of them
+            device_models.prefetch_counts(*[h for _, _, _, h in pending])
+        for svtype, c, kind, handle in pending:
+            # mid-decode, blocking here for n_kept and starting the
+            # compaction + host copy costs the decode nothing (it runs
+            # on native threads); resolve later finds the rows local
+            if kind == "pair":
+                nk_comp = device_models._pair_cluster_compact(handle)
+            else:
+                nk_comp = device_models._cluster_stream_compact(handle)
+            if nk_comp is not None and nk_comp[1] is not None:
+                device_models._start_host_copies(nk_comp[1])
+            if (kind == "indel" and tail_ok
+                    and (not finished or tail_force)):
+                # chromosomes completed before end-of-decode run the
+                # FULL tail here (emission + genotype), under the
+                # remaining decode; the final batch keeps the batched
+                # kernel cover path (no decode left to hide under, and
+                # one kernel launch beats per-chromosome sweeps)
+                early_results[(svtype, c)] = _stream_tail_emit(
+                    sd, cfg, svtype, c, fingerprints[(svtype, c)], nk_comp,
+                    census_cache, timing)
+                continue  # program output consumed by the tail
+            handles[(svtype, c)] = nk_comp
+        timing["done_tail_s" if finished
+               else "overlap_work_s"] += time.time() - t_body0
+        if finished:
+            break
+        time.sleep(0.02)
+    return handles, fingerprints, early_results, timing
+
+
+def _attach_early_to_store(store, nd, handles, fingerprints,
+                           early_results) -> None:
+    """Keep the early program handles / full-tail results whose
+    fingerprints validated against the final arrays; patch the tails'
+    chromosome-name placeholders. A chromosome that did not validate (a
+    late SA row changed it) is resolved again after the join, on the
+    same device."""
+    valid = getattr(store, "early_valid", set())
+    store.early_kernels = {
+        (t, nd.chroms[c]): h for (t, c), h in handles.items()
+        if (t, nd.chroms[c]) in valid}
+    store.early_results = {}
+    for (t, c), res in early_results.items():
+        chrom = nd.chroms[c]
+        if (t, chrom) not in valid:
+            continue  # a late SA row invalidated the chromosome
+        for cand in res[0]:
+            cand[0] = chrom  # placeholder patched now the name is known
+        store.early_results[(t, chrom)] = res
+    n_early = len(handles) + len(early_results)
+    log.info("streaming decode: %d early kernels + %d full tails "
+             "validated of %d dispatched"
+             % (len(store.early_kernels), len(store.early_results),
+                n_early))
+
+
+def _decode_bam_native_streaming(cfg: Config, bed_ids, device):
+    """Decode on a native thread; as each chromosome completes, snapshot
+    its rows, sort/dedup them with the store's exact keys (local
+    name/seq ranks are order-isomorphic to the final global ranks
+    restricted to the same rows) and dispatch its cluster programs.
+    After the join, build_store_native validates each snapshot
+    fingerprint against the final rows — a later read's SA tag can add
+    signatures to an already-passed chromosome — and only validated
+    chromosomes reuse the early work (resolve re-dispatches the rest)."""
+    from cutesv_tpu_torch.io import native as native_io
+
+    native_io.get_lib()  # a failed decoder build raises before the device
+    device = resolve_device(device)
+    t_n0 = time.time()
+    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids)
+    try:
+        handles, fingerprints, early_results, poll_timing = \
+            _streaming_poll_loop(sd, cfg, device)
+        nd = sd.join()
+    finally:
+        sd.free()
+    t_n1 = time.time()
+    _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
+                             nd.chroms)
+    early_fp = {(t, nd.chroms[c]): fp
+                for (t, c), fp in fingerprints.items()}
+    store = sigstore.build_store_native(nd, early=early_fp)
+    _attach_early_to_store(store, nd, handles, fingerprints, early_results)
+    # decode_s decomposition: native walk (inflate + parse + poll
+    # overlap) vs the store build; walk_s is the decoder-internal
+    # record-loop wall the inflate floor bounds
+    store.decode_breakdown = dict(
+        decoder="native", streaming=True, native_s=t_n1 - t_n0,
+        store_s=time.time() - t_n1, walk_s=nd.walk_s,
+        inflate_core_s=nd.inflate_core_s,
+        records_core_s=nd.records_core_s,
+        overlap_work_s=poll_timing["overlap_work_s"],
+        done_tail_s=poll_timing["done_tail_s"],
+        tail_windows=poll_timing["tail_windows"],
+        early_dispatched=len(handles) + len(early_results),
+        early_kernels=len(store.early_kernels),
+        early_tails=len(store.early_results))
+    references = [(nd.chroms[i], int(nd.ref_lengths[i]))
+                  for i in range(len(nd.ref_lengths))]
+    return store, None, references, nd.n_records
+
+
+def _decode_bam_native(cfg: Config, device=None):
     from cutesv_tpu_torch.io import native as native_io
     bed_ids = None
     if cfg.include_bed is not None:
@@ -120,11 +419,15 @@ def _decode_bam_native(cfg: Config):
             bc, bs, be = [0], [-2], [-1]
         bed_ids = (np.array(bc, np.int32), np.array(bs, np.int64),
                    np.array(be, np.int64))
+    if _stream_dispatch_ok(cfg):
+        # no fallback: a failing dispatch or tail raises
+        return _decode_bam_native_streaming(cfg, bed_ids, device)
     nd = native_io.decode(cfg.input, cfg, bed_ids)
     _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
                              nd.chroms)
     store = sigstore.build_store_native(nd)
-    store.decode_breakdown = dict(decoder="native", walk_s=nd.walk_s,
+    store.decode_breakdown = dict(decoder="native", streaming=False,
+                                  walk_s=nd.walk_s,
                                   inflate_core_s=nd.inflate_core_s,
                                   records_core_s=nd.records_core_s)
     references = [(nd.chroms[i], int(nd.ref_lengths[i]))
@@ -499,18 +802,196 @@ def _fill_gt_two_windows(cands: List[list], jobs: List[dict], store, chrom,
     return one[chrom][0]
 
 
+def _tra_cover_prepare(per_chrom: Dict[str, tuple], store, cfg: Config):
+    """Batched TRA genotyping (call_gt_tra, cuteSV_resolveTRA.py:260-309),
+    riding the shared cover-kernel launch: returns (extra_blocks,
+    finalize) for :func:`_batched_cover_multi` — the strict covering
+    counts of every candidate's two breakpoint windows are counted in the
+    SAME launch as the DEL/INS/DUP/INV genotype windows. The reference's
+    early-exit semantics — the gt_round iteration cap and the
+    threshold_ref_count bound, both order-sensitive — are detected with
+    cheap searchsorted prechecks, and only candidates that could hit them
+    (or whose read tables carry ambiguous primary names) replay the exact
+    per-candidate host loop. Byte-identical to the inline path."""
+    jobs: List[dict] = []
+    for chrom, (cands, js) in per_chrom.items():
+        for j in js:
+            j["chr1"] = chrom
+            jobs.append(j)
+    if not jobs:
+        return [], lambda: None
+    tables = store.read_tables
+    lengths = store.chrom_lengths
+    bias = cfg.max_cluster_bias_TRA
+
+    # the fast path requires globally-unambiguous primary names (each name
+    # has at most one primary record across all tables): then row counts
+    # equal distinct-name counts and the two windows' covering sets are
+    # disjoint
+    names_ok = getattr(store, "_tra_prim_unique", None)
+    if names_ok is None:
+        parts = [np.asarray(t.names)[np.asarray(t.prim) == 1]
+                 for t in tables.values()]
+        total = sum(len(p) for p in parts)
+        cat = (np.concatenate(parts) if total
+               else np.array([], np.int64))
+        names_ok = bool(len(np.unique(cat)) == total)
+        store._tra_prim_unique = names_ok
+
+    # cached on the store: derived views of the read tables
+    info: Dict[str, Optional[dict]] = getattr(store, "_tra_tinfo", None)
+    if info is None:
+        info = store._tra_tinfo = {}
+
+    def tinfo(chrom):
+        if chrom in info:
+            return info[chrom]
+        t = tables.get(chrom)
+        if t is None:
+            info[chrom] = None
+        else:
+            starts = np.asarray(t.start)
+            prim = np.asarray(t.prim) == 1
+            ps = starts[prim]
+            pe = np.asarray(t.end)[prim]
+            # file order on a coordinate-sorted BAM IS start order, so
+            # the precheck's sorted-starts view needs no re-sort
+            if starts.size < 2 or np.all(starts[1:] >= starts[:-1]):
+                as_sorted = starts
+            else:
+                as_sorted = np.sort(starts)
+            info[chrom] = dict(ps=ps, pe=pe,
+                               # ALL rows, not just primaries: the
+                               # gt_round cap fires on a primary's fetch
+                               # POSITION among every overlapping row
+                               # (secondary/supplementary included), so
+                               # the conservative no-cap precheck needs
+                               # the total overlap count
+                               as_sorted=as_sorted,
+                               ae_sorted=np.sort(np.asarray(t.end)),
+                               census=dict(start=starts,
+                                           end=np.asarray(t.end),
+                                           is_primary=np.asarray(t.prim),
+                                           name=np.asarray(t.names)))
+        return info[chrom]
+
+    # per-job windows; group (job, which-window) pairs by chromosome
+    win_by_chrom: Dict[str, List[tuple]] = {}
+    resolvable = np.zeros(len(jobs), bool)
+    for k, j in enumerate(jobs):
+        if j["chr1"] not in lengths or j["chr2"] not in lengths:
+            continue
+        resolvable[k] = True
+        for which, (chrom, pos) in enumerate(
+                ((j["chr1"], j["pos1"]), (j["chr2"], j["pos2"]))):
+            s = max(int(pos) - bias, 0)
+            e = min(int(pos) + bias, lengths[chrom])
+            win_by_chrom.setdefault(chrom, []).append((k, which, s, e))
+
+    # ---- covering counts ride the SHARED cover-kernel launch -----------
+    # strict covering (start < s and end > e, count_coverage's test) is
+    # the kernel's non-strict test on the (s-1, e+1) window
+    covers = np.zeros((len(jobs), 2), np.int64)
+    inters = np.zeros((len(jobs), 2), np.int64)
+    overlaps = np.zeros((len(jobs), 2), np.int64)
+    blocks = []
+
+    def make_sink(ks, ws):
+        def sink(counts):
+            covers[ks, ws] = np.asarray(counts, np.int64)
+        return sink
+
+    for chrom, wl in win_by_chrom.items():
+        ti = tinfo(chrom)
+        if ti is None or len(ti["ps"]) == 0:
+            continue
+        m = len(wl)
+        ks = np.fromiter((k for k, _, _, _ in wl), np.int64, m)
+        ws = np.fromiter((w for _, w, _, _ in wl), np.int64, m)
+        ss = np.fromiter((s for _, _, s, _ in wl), np.int64, m)
+        es = np.fromiter((e for _, _, _, e in wl), np.int64, m)
+        # searchsorted precheck inputs: ALL rows overlapping the fetch
+        # window (#start < e minus #end <= s). count_coverage's
+        # iteration cap fires when a primary row's position among every
+        # fetched row reaches gt_round, so fewer than gt_round TOTAL
+        # overlapping rows is the conservative no-cap guarantee (a
+        # primary-only count misses caps behind secondary pileups)
+        overlaps[ks, ws] = (
+            np.searchsorted(ti["as_sorted"], es, "left")
+            - np.searchsorted(ti["ae_sorted"], ss, "right"))
+        shifted = np.stack([ss - 1, es + 1], axis=1)
+        blocks.append(dict(
+            windows=list(map(tuple, shifted.tolist())),
+            starts=ti["ps"], ends=ti["pe"], sink=make_sink(ks, ws)))
+        # support-covering counts (vectorized; strict via shifted window)
+        supports = [jobs[k]["support"] for k, _, _, _ in wl]
+        inter = support_inter_counts(ti["census"], supports,
+                                     [shifted.tolist()])
+        inters[ks, ws] = np.asarray(inter, np.int64)
+
+    def finalize():
+        # fast path or exact replay, after the pass filled ``covers``
+        table = gl_table()
+        stats = dict(fast=0, replay=0, unresolvable=0)
+        for k, j in enumerate(jobs):
+            cand = j["cand"]
+            if not resolvable[k]:
+                # SA-tag contig absent from the header (call_gt_tra's
+                # degraded "unresolvable" genotype)
+                dr, gt, gl, gq, qual = ".", "./.", ".,.,.", ".", "."
+                stats["unresolvable"] += 1
+            else:
+                support = j["support"]
+                up_bound = threshold_ref_count(len(support))
+                c1, c2 = int(covers[k, 0]), int(covers[k, 1])
+                fast = (names_ok
+                        and int(overlaps[k, 0]) < cfg.gt_round
+                        and int(overlaps[k, 1]) < cfg.gt_round
+                        and c1 < up_bound and c1 + c2 < up_bound)
+                if fast:
+                    dr = ((c1 - int(inters[k, 0]))
+                          + (c2 - int(inters[k, 1])))
+                    gt, gl, gq, qual = table.lookup(dr, len(support))
+                    stats["fast"] += 1
+                else:
+                    _, dr, gt, gl, gq, qual = call_gt_tra(
+                        tables, lengths, j["pos1"], j["pos2"], j["chr1"],
+                        j["chr2"], support, bias, cfg.gt_round)
+                    stats["replay"] += 1
+            cand[6] = str(dr)
+            cand[7] = str(gt)
+            cand[8] = str(gl)
+            cand[9] = str(gq)
+            cand[10] = str(qual)
+        store.tra_cover_stats = stats
+
+    return blocks, finalize
+
+
+def _tra_cover_pass(per_chrom: Dict[str, tuple], store, cfg: Config,
+                    cover_fn=None) -> None:
+    """Standalone form of the batched TRA genotype pass; the pipeline
+    rides the shared cover launch instead."""
+    blocks, finalize = _tra_cover_prepare(per_chrom, store, cfg)
+    _batched_cover_multi([], store, cover_fn, extra_blocks=blocks)
+    finalize()
+
+
 def resolve_all(store: sigstore.SigStore, cfg: Config,
                 device=None) -> Dict[str, List]:
     """Cluster + genotype every chromosome; returns chrom -> candidate rows
     in the reference's DEL, INS, INV, DUP, TRA submission order.
 
-    ``cfg.engine`` "device"/"auto": DEL/INS cluster on ``device``;
-    DUP/INV/TRA resolve on the host oracle, whose output equals the JAX
-    package's device engine. The DUP/INV genotypes, and on a native
-    (rank-keyed) store the DEL/INS ones too, count their covers in one
-    batched pass: one CUDA kernel launch per int32-safe flush (the plain
-    version on a CPU device). On a Python store DEL/INS genotypes count
-    per chromosome. TRA genotypes stay inline in the host resolver.
+    ``cfg.engine`` "device"/"auto": every cluster program (DEL/INS per
+    int32-safe batch, DUP/INV/TRA per chromosome) is dispatched on
+    ``device`` before any is fetched, reusing the streaming decode's
+    validated early programs (``store.early_kernels``) and skipping the
+    chromosomes whose full tail already ran (``store.early_results``).
+    Genotypes count their covers in one batched pass: one CUDA kernel
+    launch per int32-safe flush (the plain version on a CPU device) for
+    the DUP/INV windows and, on a native (rank-keyed) store, the DEL/INS
+    and TRA windows too. On a Python store DEL/INS genotypes count per
+    chromosome and TRA genotypes stay inline, as in the JAX package.
     "host": the numpy oracle for every type, host cover counts."""
     device = resolve_device(device)
     check_slice(cfg)
@@ -530,23 +1011,64 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
 
     min_sup5 = min(cfg.min_support, 5)
     if use_device:
-        # both cluster programs are enqueued before either n_kept is read
+        early_k = getattr(store, "early_kernels", None) or {}
+        # chromosomes whose FULL tail (emission + genotype) already ran
+        # during the streaming decode skip resolution entirely
+        early_res = getattr(store, "early_results", None) or {}
         del_state = device_models.resolve_indel_multi_start(
-            list(sig["DEL"].items()), False, cfg.min_support,
-            cfg.max_cluster_bias_DEL, device)
+            [(c, s) for c, s in sig["DEL"].items()
+             if ("DEL", c) not in early_res], False, cfg.min_support,
+            cfg.max_cluster_bias_DEL, device,
+            early={c: h for (t, c), h in early_k.items() if t == "DEL"})
         ins_state = device_models.resolve_indel_multi_start(
-            list(sig["INS"].items()), True, cfg.min_support,
-            cfg.max_cluster_bias_INS, device)
-        device_models.prefetch_counts(del_state, ins_state)
+            [(c, s) for c, s in sig["INS"].items()
+             if ("INS", c) not in early_res], True, cfg.min_support,
+            cfg.max_cluster_bias_INS, device,
+            early={c: h for (t, c), h in early_k.items() if t == "INS"})
+
+        def pair_state(svtype, chrom, sigs, is_inv, bias):
+            # reuse the streaming decode's early pair program (already
+            # compacted and copying to the host) when it validated
+            h = early_k.get((svtype, chrom))
+            if h is not None:
+                return ("pending", h)
+            return device_models.resolve_pair_start(
+                sigs, is_inv, cfg.min_support, bias, device)
+
+        inv_states = {
+            chrom: pair_state("INV", chrom, sigs, True,
+                              cfg.max_cluster_bias_INV)
+            for chrom, sigs in sig["INV"].items()}
+        dup_states = {
+            chrom: pair_state("DUP", chrom, sigs, False,
+                              cfg.max_cluster_bias_DUP)
+            for chrom, sigs in sig["DUP"].items()}
+        tra_states = {
+            chrom: device_models.resolve_tra_start(
+                sigs, cfg.min_support, cfg.max_cluster_bias_TRA, device)
+            for chrom, sigs in sig["TRA"].items()}
+        device_models.prefetch_counts(
+            del_state, ins_state, *inv_states.values(),
+            *dup_states.values(), *tra_states.values())
         device_models.resolve_indel_multi_compact(del_state)
         device_models.resolve_indel_multi_compact(ins_state)
-        device_models.prefetch_to_host(del_state, ins_state)
+        inv_states = {c: device_models.resolve_pair_compact(s)
+                      for c, s in inv_states.items()}
+        dup_states = {c: device_models.resolve_pair_compact(s)
+                      for c, s in dup_states.items()}
+        tra_states = {c: device_models.resolve_tra_compact(s)
+                      for c, s in tra_states.items()}
+        device_models.prefetch_to_host(
+            del_state, ins_state, *inv_states.values(),
+            *dup_states.values(), *tra_states.values())
         del_res = device_models.resolve_indel_multi_finish(
             del_state, cfg.diff_ratio_merging_DEL, min_sup5,
             cfg.remain_reads_ratio, action, need_names=cfg.report_readid)
         ins_res = device_models.resolve_indel_multi_finish(
             ins_state, cfg.diff_ratio_merging_INS, min_sup5,
             cfg.remain_reads_ratio, action, need_names=cfg.report_readid)
+        for (t, c), res in early_res.items():
+            (del_res if t == "DEL" else ins_res)[c] = res
         cover_fn = functools.partial(cover_counts_cuda, device=device)
     else:
         def rows_of(sigs):
@@ -565,22 +1087,49 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
                 min_sup5, cfg.remain_reads_ratio, action, names=names)
             for chrom, sigs in sig["INS"].items()}
         cover_fn = None
-    inv_res = {
-        chrom: host_models.resolve_inv(
-            sigs, chrom, cfg.min_support, cfg.max_cluster_bias_INV,
-            cfg.min_size, cfg.max_size, action, names=names)
-        for chrom, sigs in sig["INV"].items()}
-    dup_res = {
-        chrom: host_models.resolve_dup(
-            sigs, chrom, cfg.min_support, cfg.max_cluster_bias_DUP,
-            cfg.min_size, cfg.max_size, action, names=names)
-        for chrom, sigs in sig["DUP"].items()}
-    tra_out = {
-        chrom: host_models.resolve_tra(
-            sigs_t, chrom, cfg.min_support, cfg.diff_ratio_filtering_TRA,
-            cfg.max_cluster_bias_TRA, store.read_tables, store.chrom_lengths,
-            action, cfg.gt_round, names=names)
-        for chrom, sigs_t in sig["TRA"].items()}
+    inv_res, dup_res = {}, {}
+    for chrom, sigs in sig["INV"].items():
+        if use_device:
+            inv_res[chrom] = device_models.resolve_pair_finish(
+                inv_states[chrom], sigs, True, chrom, cfg.min_support,
+                cfg.max_cluster_bias_INV, cfg.min_size, cfg.max_size,
+                action, names=names)
+        else:
+            inv_res[chrom] = host_models.resolve_inv(
+                sigs, chrom, cfg.min_support, cfg.max_cluster_bias_INV,
+                cfg.min_size, cfg.max_size, action, names=names)
+    for chrom, sigs in sig["DUP"].items():
+        if use_device:
+            dup_res[chrom] = device_models.resolve_pair_finish(
+                dup_states[chrom], sigs, False, chrom, cfg.min_support,
+                cfg.max_cluster_bias_DUP, cfg.min_size, cfg.max_size,
+                action, names=names)
+        else:
+            dup_res[chrom] = host_models.resolve_dup(
+                sigs, chrom, cfg.min_support, cfg.max_cluster_bias_DUP,
+                cfg.min_size, cfg.max_size, action, names=names)
+    # TRA resolution happens BEFORE the cover pass so its genotype
+    # windows ride the same kernel launch (candidates and logs still emit
+    # in the reference's DEL, INS, INV, DUP, TRA order below)
+    tra_batch = action and use_device and names is not None
+    tra_res: Dict[str, tuple] = {}
+    tra_out: Dict[str, list] = {}
+    for chrom, sigs_t in sig["TRA"].items():
+        if use_device:
+            jobs_t: Optional[list] = [] if tra_batch else None
+            tra_out[chrom] = device_models.resolve_tra_finish(
+                tra_states.get(chrom), sigs_t, chrom, cfg.min_support,
+                cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
+                store.read_tables, store.chrom_lengths, action,
+                cfg.gt_round, names=names, jobs_out=jobs_t)
+            if tra_batch:
+                tra_res[chrom] = (tra_out[chrom], jobs_t)
+        else:
+            tra_out[chrom] = host_models.resolve_tra(
+                sigs_t, chrom, cfg.min_support,
+                cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
+                store.read_tables, store.chrom_lengths, action,
+                cfg.gt_round, names=names)
     # ONE read-support cover pass for every batched SV type and
     # chromosome: the census uploads once per flush and the kernel
     # launches once per flush
@@ -592,7 +1141,15 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
     if action and use_device:
         specs.append(_two_windows_cover_spec(inv_res, (5, 6, 8, 9, 10)))
         specs.append(_two_windows_cover_spec(dup_res, (5, 6, 7, 8, 9)))
-        _batched_cover_multi(specs, store, cover_fn)
+    tra_finalize = None
+    tra_blocks = []
+    if tra_batch:
+        tra_blocks, tra_finalize = _tra_cover_prepare(tra_res, store, cfg)
+    if specs or tra_blocks:
+        _batched_cover_multi(specs, store, cover_fn,
+                             extra_blocks=tra_blocks)
+    if tra_finalize is not None:
+        tra_finalize()
     for res, svtype in ((del_res, "DEL"), (ins_res, "INS")):
         for chrom in sig[svtype]:
             cands, jobs = res[chrom]
@@ -664,7 +1221,7 @@ def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
         references = [(c, l) for c, l in store.chrom_lengths.items()]
         n_records = -1
     else:
-        store, candidates, references, n_records = decode_bam(cfg)
+        store, candidates, references, n_records = decode_bam(cfg, device)
         stats.update(store.decode_breakdown)
     stats["decode_s"] = time.time() - t0
     stats["n_records"] = n_records

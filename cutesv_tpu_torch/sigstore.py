@@ -172,7 +172,83 @@ def _dedup_mask(*keys) -> np.ndarray:
     return keep
 
 
-def build_store_native(nd) -> SigStore:
+def prepare_snapshot(snap: dict, is_ins: bool):
+    """Sort + dedup one chromosome's streaming-decode snapshot with the
+    exact per-chromosome sort keys of build_store_native. The snapshot's
+    LOCAL name/seq ranks are order-isomorphic to the final global ranks
+    restricted to the same rows, so the resulting permutation equals the
+    final store's — as long as no later read added rows to this
+    chromosome. Signature rows are append-only, so build_store_native
+    validates a snapshot by raw row COUNT: equal count means the exact
+    same rows, and the store then reuses these columns instead of
+    re-sorting them.
+
+    Returns (store_cols, dispatch): store_cols = {pos (raw; INS pos*2),
+    length, name_id[, seq_off, seq_len], n_raw} post-sort+dedup, ready
+    to become the final per-chromosome store stream (rid = global
+    rank[name_id]); dispatch = {pos (INS: int(pos)), length, rid (local
+    ranks)} for the cluster program."""
+    lrank = snap["name_lrank"]
+    n_raw = len(snap["pos"])
+    if is_ins:
+        px2, ln, sq = snap["pos"], snap["length"], snap["seq_lrank"]
+        order = _lexsort_packed((sq, lrank, ln, px2 >> 1))
+        px2, ln, lrank, sq = (px2[order], ln[order], lrank[order],
+                              sq[order])
+        nid = snap["name_id"][order]
+        soff = snap["seq_off"][order]
+        slen = snap["seq_len"][order]
+        keep = _dedup_mask(px2, ln, lrank, sq)
+        px2, ln, lrank, nid = px2[keep], ln[keep], lrank[keep], nid[keep]
+        soff, slen = soff[keep], slen[keep]
+        # dispatch mirrors resolution's sentinel filter (drop_sentinel_rows)
+        # so the early program's rows equal the filtered store stream;
+        # the store columns stay unfiltered (store identity)
+        live = ~(((px2 >> 1) == 0) & (ln == 0))
+        return (dict(pos=px2, length=ln, name_id=nid, seq_off=soff,
+                     seq_len=slen, n_raw=n_raw),
+                dict(pos=(px2 >> 1)[live], length=ln[live], rid=lrank[live]))
+    pos, ln = snap["pos"], snap["length"]
+    order = _lexsort_packed((lrank, ln, pos))
+    pos, ln, lrank = pos[order], ln[order], lrank[order]
+    nid = snap["name_id"][order]
+    keep = _dedup_mask(pos, ln, lrank)
+    pos, ln, lrank, nid = pos[keep], ln[keep], lrank[keep], nid[keep]
+    live = ~((pos == 0) & (ln == 0))
+    return (dict(pos=pos, length=ln, name_id=nid, n_raw=n_raw),
+            dict(pos=pos[live], length=ln[live], rid=lrank[live]))
+
+
+def prepare_snapshot_pair(svtype: str, snap: dict):
+    """DUP/INV counterpart of :func:`prepare_snapshot`: sort + dedup one
+    chromosome's streaming snapshot with the store's exact keys
+    (DUP: (p1, p2, name); INV: (strand, b1, b2, name), cuteSV:763-810)
+    and strip sentinel rows, yielding pair-cluster program args whose row
+    order equals the final store's filtered per-chromosome tuples.
+    Returns (fingerprint, {k1, k2, aux, keys})."""
+    n_raw = len(snap["pos"])
+    k1, k2, lrank = snap["pos"], snap["length"], snap["name_lrank"]
+    if svtype == "INV":
+        st = snap["strand"]
+        order = _lexsort_packed((lrank, k2, k1, st))
+        st, k1, k2, lr = st[order], k1[order], k2[order], lrank[order]
+        keep = _dedup_mask(st, k1, k2, lr)
+        st, k1, k2, lr = st[keep], k1[keep], k2[keep], lr[keep]
+        aux = st.astype(np.int64)
+    else:
+        order = _lexsort_packed((lrank, k2, k1))
+        k1, k2, lr = k1[order], k2[order], lrank[order]
+        keep = _dedup_mask(k1, k2, lr)
+        k1, k2, lr = k1[keep], k2[keep], lr[keep]
+        aux = np.zeros(len(k1), np.int64)
+    # resolution-side sentinel filter (drop_sentinel_rows semantics over
+    # the program's two coordinates)
+    live = ~((k1 == 0) & (k2 == 0))
+    return (dict(n_raw=n_raw),
+            dict(k1=k1[live], k2=k2[live], aux=aux[live], keys=lr[live]))
+
+
+def build_store_native(nd, early=None) -> SigStore:
     """Merge the native decoder's signature arrays (io.native.NativeDecode)
     into a SigStore.
 
@@ -181,6 +257,13 @@ def build_store_native(nd) -> SigStore:
     sequences are compared via precomputed lexicographic ranks, which makes
     integer sorting equal string sorting. Exact-duplicate removal compares
     full rows (INS compares pos*2 exactly and sequences by content rank).
+
+    ``early``: optional {(svtype, chrom_name): fingerprint} from
+    :func:`prepare_snapshot` / :func:`prepare_snapshot_pair`; chromosomes
+    whose final raw row count matches their snapshot's are recorded in
+    ``store.early_valid`` (a late read's SA tag can add rows to an earlier
+    chromosome, in which case the early work is discarded), and their
+    DEL/INS streams reuse the snapshot's sorted columns.
     """
     from cutesv_tpu_torch.models.device import IndelStream
 
@@ -212,40 +295,107 @@ def build_store_native(nd) -> SigStore:
             yield chrom_by_rank[int(ck_sorted[lo])], lo, int(hi)
             lo = int(hi)
 
+    store.early_valid = set()
+
+    def early_cols(svtype, chr_col):
+        """{chrom_id: store_cols} for chromosomes whose streaming-decode
+        snapshot still matches the final arrays. Rows are append-only, so
+        an equal raw per-chromosome row count means the snapshot saw the
+        exact same rows — no sorted-column comparison needed, and the
+        store can reuse the snapshot's sorted/deduped columns instead of
+        re-sorting them."""
+        if not early:
+            return {}
+        cnts = np.bincount(chr_col, minlength=len(nd.chroms))
+        out = {}
+        for cid in range(len(nd.chroms)):
+            cols = early.get((svtype, nd.chroms[cid]))
+            if cols is not None and cols["n_raw"] == int(cnts[cid]):
+                out[cid] = cols
+                store.early_valid.add((svtype, nd.chroms[cid]))
+        return out
+
+    def merge_streams(ev, global_streams, make_early):
+        """Per-chrom streams in chromosome-rank order (the dict order the
+        all-global path produces), merging early and globally-sorted
+        chromosomes."""
+        out = {}
+        for cid in chrom_order:
+            name = nd.chroms[cid]
+            if cid in ev:
+                out[name] = make_early(ev[cid])
+            elif name in global_streams:
+                out[name] = global_streams[name]
+        return out
+
     # ---- DEL: key (chr, pos, len, name) --------------------------------
-    rid = rank[A["del_name"]]
-    ck = chrom_rank[A["del_chr"]]
-    order = _lexsort_packed((rid, A["del_len"], A["del_pos"], ck))
-    ck, pos, ln, rid = (ck[order], A["del_pos"][order], A["del_len"][order],
-                        rid[order])
+    ev = early_cols("DEL", A["del_chr"])
+    if ev:
+        sel = ~np.isin(A["del_chr"],
+                       np.fromiter(ev, np.int64, len(ev)))
+        d_chr, d_pos, d_len, d_name = (A["del_chr"][sel], A["del_pos"][sel],
+                                       A["del_len"][sel], A["del_name"][sel])
+    else:
+        d_chr, d_pos, d_len, d_name = (A["del_chr"], A["del_pos"],
+                                       A["del_len"], A["del_name"])
+    rid = rank[d_name]
+    ck = chrom_rank[d_chr]
+    order = _lexsort_packed((rid, d_len, d_pos, ck))
+    ck, pos, ln, rid = ck[order], d_pos[order], d_len[order], rid[order]
     keep = _dedup_mask(ck, pos, ln, rid)
     ck, pos, ln, rid = ck[keep], pos[keep], ln[keep], rid[keep]
-    store.sigs["DEL"] = {
+    dels = {
         chrom: IndelStream.from_arrays(pos[lo:hi], ln[lo:hi], rid[lo:hi],
                                        names_by_rank)
         for chrom, lo, hi in per_chrom_slices(ck)}
+    store.sigs["DEL"] = merge_streams(
+        ev, dels, lambda c: IndelStream.from_arrays(
+            c["pos"], c["length"], rank[c["name_id"]], names_by_rank))
 
     # ---- INS: key (chr, int(pos), len, name, seq) ----------------------
-    rid = rank[A["ins_name"]]
-    ck = chrom_rank[A["ins_chr"]]
-    order = _lexsort_packed((A["ins_seq_rank"], rid, A["ins_len"],
-                             A["ins_posx2"] >> 1, ck))
-    ck, px2, ln, rid, sq = (ck[order], A["ins_posx2"][order],
-                            A["ins_len"][order], rid[order],
-                            A["ins_seq_rank"][order])
-    soff, slen = A["ins_seq_off"][order], A["ins_seq_len"][order]
+    ev = early_cols("INS", A["ins_chr"])
+    if ev:
+        sel = ~np.isin(A["ins_chr"],
+                       np.fromiter(ev, np.int64, len(ev)))
+        i_chr, i_px2, i_len, i_name = (A["ins_chr"][sel],
+                                       A["ins_posx2"][sel],
+                                       A["ins_len"][sel],
+                                       A["ins_name"][sel])
+        i_sq, i_soff, i_slen = (A["ins_seq_rank"][sel],
+                                A["ins_seq_off"][sel],
+                                A["ins_seq_len"][sel])
+    else:
+        i_chr, i_px2, i_len, i_name = (A["ins_chr"], A["ins_posx2"],
+                                       A["ins_len"], A["ins_name"])
+        i_sq, i_soff, i_slen = (A["ins_seq_rank"], A["ins_seq_off"],
+                                A["ins_seq_len"])
+    rid = rank[i_name]
+    ck = chrom_rank[i_chr]
+    ipos = i_px2 >> 1
+    order = _lexsort_packed((i_sq, rid, i_len, ipos, ck))
+    ck, px2, ln, rid, sq = (ck[order], i_px2[order], i_len[order],
+                            rid[order], i_sq[order])
+    soff, slen = i_soff[order], i_slen[order]
     keep = _dedup_mask(ck, px2, ln, rid, sq)
     ck, px2, ln, rid = ck[keep], px2[keep], ln[keep], rid[keep]
     soff, slen = soff[keep], slen[keep]
     ipos = px2 >> 1  # resolution-time int(pos) truncation
-    store.sigs["INS"] = {
+    inss = {
         chrom: IndelStream.from_arrays(ipos[lo:hi], ln[lo:hi], rid[lo:hi],
                                        names_by_rank, seq_len=slen[lo:hi],
                                        seq_blob=nd.ins_seq_blob,
                                        seq_off=soff[lo:hi])
         for chrom, lo, hi in per_chrom_slices(ck)}
+    store.sigs["INS"] = merge_streams(
+        ev, inss, lambda c: IndelStream.from_arrays(
+            c["pos"] >> 1, c["length"], rank[c["name_id"]], names_by_rank,
+            seq_len=c["seq_len"], seq_blob=nd.ins_seq_blob,
+            seq_off=c["seq_off"]))
 
     # ---- DUP: key (chr, pos1, pos2, name); tuple rows ------------------
+    # (early pair-program validation only needs the row-count fingerprint;
+    # the tuple lists are still built globally for host emission)
+    early_cols("DUP", A["dup_chr"])
     rid = rank[A["dup_name"]]
     ck = chrom_rank[A["dup_chr"]]
     order = _lexsort_packed((rid, A["dup_p2"], A["dup_p1"], ck))
@@ -259,6 +409,7 @@ def build_store_native(nd) -> SigStore:
         for chrom, lo, hi in per_chrom_slices(ck)}
 
     # ---- INV: key (chr, strand, bp1, bp2, name); tuple rows ------------
+    early_cols("INV", A["inv_chr"])
     rid = rank[A["inv_name"]]
     ck = chrom_rank[A["inv_chr"]]
     st = A["inv_strand"].astype(np.int64)
@@ -387,10 +538,17 @@ def drop_sentinel_rows(svtype: str, stream):
 
 def save_store(store: SigStore, work_dir: str):
     """Checkpoint the store (signature tensors = natural resume point
-    between extract and cluster, SURVEY §5)."""
+    between extract and cluster, SURVEY §5). The streaming decode's
+    program handles (device tensors and CUDA events, which do not
+    pickle) never enter the checkpoint."""
     path = os.path.join(work_dir, "sigstore.pickle")
-    with open(path, "wb") as fh:
-        pickle.dump(store, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    kernels = store.__dict__.pop("early_kernels", None)
+    try:
+        with open(path, "wb") as fh:
+            pickle.dump(store, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    finally:
+        if kernels is not None:
+            store.early_kernels = kernels
     return path
 
 

@@ -1,15 +1,23 @@
 """Synthetic long-read SV simulator.
 
-Invents a DEL/INS truth set on a grid over a random reference and writes
-a random reference FASTA, a truth bed in the VISOR HACk column layout,
-and a coordinate-sorted BAM of perfect long reads carrying the planted
-SVs at the requested zygosity (the ``simulate`` mode of
+Two generators, the ``simulate`` and ``--from_bed`` replay modes of
 ``cutesv_tpu/tools/simulate.py``, written with this package's own
-BamWriter).
+BamWriter (with the same inputs and seed they write the same bytes):
+
+* :func:`simulate` invents a DEL/INS truth set on a grid over a random
+  reference and writes a random reference FASTA, a truth bed in the
+  VISOR HACk column layout, and a coordinate-sorted BAM of perfect long
+  reads carrying the planted SVs at the requested zygosity;
+* :func:`replay` consumes VISOR HACk truth beds restricted to a genome
+  window and synthesizes a reference + reads that carry every
+  replayable record (CIGAR indels for small DEL/INS, SA-tag split reads
+  for large DEL, DUP, INV and reciprocal-translocation breakends), with
+  translocation mates remapped into small synthetic mate chromosomes.
 """
 from __future__ import annotations
 
-from typing import List
+import gzip
+from typing import Dict, List
 
 import numpy as np
 
@@ -106,3 +114,259 @@ def simulate(out_prefix: str, genome_mb: float = 10.0, n_chroms: int = 2,
             for i in range(0, n, 10_000):
                 fa_out.write(s[i:i + 10_000] + "\n")
     return dict(bam=bam, fa=fa, bed=bed, gt=gt_bed, n_reads=n_reads)
+
+
+def _load_visor_records(paths: List[str], chrom: str, wstart: int,
+                        wend: int, margin: int):
+    """Read VISOR HACk bed rows on ``chrom`` whose footprint (or, for
+    translocations, whose breakend-1 anchor) fits the window with margin."""
+    recs = []
+    for path in paths:
+        op = gzip.open if path.endswith(".gz") else open
+        with op(path, "rt") as fh:
+            for line in fh:
+                f = line.rstrip("\n").split("\t")
+                if len(f) < 5 or f[0] != chrom:
+                    continue
+                s, e = int(f[1]), int(f[2])
+                if wstart + margin <= s and e <= wend - margin:
+                    recs.append([f[0], s, e, f[3], f[4]])
+    recs.sort(key=lambda r: r[1])
+    return recs
+
+
+def _bnd_breakends(start: int, end: int, start2: int, s1: str, s2: str):
+    """The breakend (pos1, pos2) pairs eval_sim's truth expansion accepts
+    for a reciprocal translocation (tools/eval_sim.py::load_ans;
+    reference eval_sim.py:182-229). One read cluster is planted per pair."""
+    d = end - start
+    if s1[0] == "f":
+        if s2[0] == "f":
+            return [(start, start2), (end, start2 + d)]
+        return [(start, start2), (start, start2 + d),
+                (end, start2), (end, start2 + d)]
+    if s2[0] == "f":
+        return [(start, start2 + d), (start, start2),
+                (end, start2), (end, start2 + d)]
+    return [(start, start2 + d), (end, start2)]
+
+
+def replay(out_prefix: str, beds: List[str], window: str,
+           coverage: int = 20, seed: int = 0, mate_cap: int = 400_000,
+           min_gap: int = 2500, margin: int = 6000):
+    """Replay VISOR truth beds inside ``window`` (chrom:start-end).
+
+    Builds a random reference for the window chromosome (plus small mate
+    chromosomes for translocations), plants per-record carrier read
+    clusters over background tiling, and writes bam/fa/truth/zygosity
+    files. Returns counts. Carrier encodings:
+
+    * DEL <= 5 kb / INS: CIGAR D / I events (reference parse_read path,
+      cuteSV:606-681);
+    * DEL > 5 kb: 2-segment same-strand split with a reference gap;
+    * DUP: 2-segment split with a backward reference jump
+      (cuteSV:225-257);
+    * INV: 2-segment opposite-strand head-to-head split (cuteSV:50-94);
+    * BND: one split cluster per truth breakend expansion row
+      (cuteSV:97-188), mates remapped into synthetic mate chromosomes.
+    """
+    rng = np.random.default_rng(seed)
+    chrom, span = window.split(":")
+    wstart, wend = (int(x) for x in span.replace(",", "").split("-"))
+    if wend - wstart > 64_000_000:
+        # only the window span is allocated (bed coordinates stay valid
+        # via offset indexing), so the cap bounds the actual allocation
+        raise ValueError("window too wide (>64Mb): %s" % window)
+    recs = _load_visor_records(beds, chrom, wstart, wend, margin)
+
+    # conflict pruning: breakpoints of accepted records keep >= min_gap
+    # distance so carrier flanks never interleave between records
+    reserved: List[int] = []
+
+    def free(points):
+        return all(abs(p - q) >= min_gap for p in points for q in reserved)
+
+    FLANK = 1000
+    n_carriers = max(4, coverage // 2)
+    accepted, dropped = [], 0
+    mate_len: Dict[str, int] = {}
+    for rec in recs:
+        _, s, e, svtype, info = rec
+        if svtype == "reciprocal translocation":
+            f = info.split(":")
+            chr2, start2, s1, s2 = f[1], int(f[2]), f[3], f[4]
+            if chr2 == chrom:
+                dropped += 1  # same-chrom "translocation": not replayable
+                continue
+            d = e - s
+            # remap the mate anchor into a small synthetic chromosome
+            r2 = margin + (start2 * 9973) % max(mate_cap - 2 * margin - d, 1)
+            pairs = _bnd_breakends(s, e, r2, s1, s2)
+            pts = [p for p, _ in pairs]
+            if not free(pts):
+                dropped += 1
+                continue
+            reserved.extend(pts)
+            mate_len[chr2] = max(mate_len.get(chr2, 0),
+                                 r2 + d + margin + FLANK)
+            rec = rec + [("bnd", pairs, chr2, r2, s1, s2)]
+        elif svtype in ("deletion", "insertion", "tandem duplication",
+                        "inversion"):
+            pts = [s] if svtype == "insertion" else [s, e]
+            if not free(pts):
+                dropped += 1
+                continue
+            reserved.extend(pts)
+            rec = rec + [(svtype,)]
+        else:
+            # VISOR types without a carrier encoding here (e.g. inverted
+            # tandem duplication, SNP) are dropped, not crashed on
+            dropped += 1
+            continue
+        accepted.append(rec)
+
+    class OffsetRef:
+        """Random sequence for [base, length) of a declared-length contig;
+        slicing uses absolute coordinates. Bases below `base` are filler
+        'A' (never touched by reads: all reads live in the window)."""
+
+        def __init__(self, length, base=0):
+            self.length = length
+            self.base = base
+            self.arr = rng.integers(0, 4, size=length - base,
+                                    dtype=np.uint8)
+
+        def __getitem__(self, sl):
+            return self.arr[sl.start - self.base:sl.stop - self.base]
+
+    win_base = max(0, wstart - margin)
+    chroms = [(chrom, wend)] + [(c, mate_len[c]) for c in sorted(mate_len)]
+    seqs = {c: OffsetRef(n, win_base if c == chrom else 0)
+            for c, n in chroms}
+    chrom_id = {c: k for k, (c, _) in enumerate(chroms)}
+
+    reads: Dict[str, list] = {c: [] for c, _ in chroms}
+    # background tiling on every chromosome: the reference haplotype.
+    # Long enough that reads overlapping a breakpoint usually also cover
+    # the +-1000 genotype window (cuteSV_resolveINDEL.py:312), so het
+    # sites genotype as het like they would with real 10-20 kb reads.
+    BG_LEN = 8000
+    bg_step = max(1, int(BG_LEN / max(1, coverage // 2)))
+    for c, n in chroms:
+        lo = wstart if c == chrom else 0
+        for k, start in enumerate(range(lo, n - BG_LEN, bg_step)):
+            reads[c].append((start, "%s_bg%06d" % (c, k), 0,
+                             [(0, BG_LEN)], None, None))
+
+    def sa(c, pos0, strand, cig):
+        return "%s,%d,%s,%s,60,0;" % (c, pos0 + 1, strand, cig)
+
+    ref = seqs[chrom]
+    rid = 0
+    for rec in accepted:
+        _, s, e, svtype, info, plan = rec
+        for k in range(n_carriers):
+            j = k * 5
+            rid += 1
+            q = "sv_r%06d" % rid
+            kind = plan[0]
+            if kind == "deletion" and e - s <= 5000:
+                a = FLANK + (k * 37) % 200
+                seq = np.concatenate([ref[s - a:s], ref[e:e + FLANK]])
+                reads[chrom].append((s - a, q, 0,
+                                     [(0, a), (2, e - s), (0, FLANK)],
+                                     seq, None))
+            elif kind == "deletion":
+                p = s - FLANK - j
+                seq = np.concatenate([ref[p:s], ref[e:e + FLANK]])
+                reads[chrom].append(
+                    (p, q, 0, [(0, s - p), (4, FLANK)], seq,
+                     {"SA": sa(chrom, e, "+",
+                               "%dS%dM" % (s - p, FLANK))}))
+            elif kind == "insertion":
+                lut = np.zeros(256, np.uint8)
+                lut[ord("C")] = 1
+                lut[ord("G")] = 2
+                lut[ord("T")] = 3
+                ins = lut[np.frombuffer(info.upper().encode("ascii"),
+                                        np.uint8)]
+                a = FLANK + (k * 37) % 200
+                seq = np.concatenate([ref[s - a:s], ins,
+                                      ref[s:s + FLANK]])
+                reads[chrom].append((s - a, q, 0,
+                                     [(0, a), (1, len(ins)), (0, FLANK)],
+                                     seq, None))
+            elif kind == "tandem duplication":
+                # primary covers [e-FLANK, e); supplementary re-aligns the
+                # clipped tail back at s -> DUP(s, e)
+                p = e - FLANK - j
+                seq = np.concatenate([ref[p:p + FLANK], ref[s:s + FLANK]])
+                reads[chrom].append(
+                    (p, q, 0, [(0, FLANK), (4, FLANK)], seq,
+                     {"SA": sa(chrom, s - j, "+",
+                               "%dS%dM" % (FLANK, FLANK))}))
+            elif kind == "inversion":
+                # '+' primary ending at s, '-' supplementary ending at e
+                # -> ("++", s, e) head-to-head signature
+                p = s - FLANK - j
+                seq = np.concatenate(
+                    [ref[p:p + FLANK], 3 - ref[e - FLANK:e][::-1]])
+                reads[chrom].append(
+                    (p, q, 0, [(0, FLANK), (4, FLANK)], seq,
+                     {"SA": sa(chrom, e - FLANK - j, "-",
+                               "%dM%dS" % (FLANK, FLANK))}))
+            else:  # bnd: one cluster per truth expansion pair
+                _, pairs, chr2, _, _, _ = plan
+                for ci, (p1, p2) in enumerate(pairs):
+                    rid += 1
+                    qb = "sv_r%06d_%d" % (rid, ci)
+                    base = p1 + ci * 150  # separate same-pos1 clusters
+                    p = base - FLANK - j
+                    seq = np.concatenate([ref[p:p + FLANK],
+                                          seqs[chr2][p2:p2 + FLANK]])
+                    reads[chrom].append(
+                        (p, qb, 0, [(0, FLANK), (4, FLANK)], seq,
+                         {"SA": sa(chr2, p2, "+",
+                                   "%dS%dM" % (FLANK, FLANK))}))
+
+    bam = out_prefix + ".bam"
+    fa = out_prefix + ".fa"
+    bed = out_prefix + ".truth.bed"
+    gt_bed = out_prefix + ".zygosity.bed"
+    n_reads = 0
+    from cutesv_tpu_torch.io.bam import BamWriter
+
+    with BamWriter(bam, chroms) as w:
+        for c, _ in chroms:
+            reads[c].sort(key=lambda r: r[0])
+            for pos, q, flag, cigar, seq, tags in reads[c]:
+                if seq is None:
+                    seq = seqs[c][pos:pos + BG_LEN]
+                w.write(q, flag, chrom_id[c], pos, 60, cigar,
+                        _codes_to_str(seq), tags)
+                n_reads += 1
+    with open(fa, "w") as fh:
+        for c, n in chroms:
+            fh.write(">%s\n" % c)
+            base = seqs[c].base
+            filler = "A" * 10_000
+            for i in range(0, base - base % 10_000, 10_000):
+                fh.write(filler + "\n")
+            if base % 10_000:
+                fh.write("A" * (base % 10_000) + "\n")
+            sstr = _codes_to_str(seqs[c].arr)
+            for i in range(0, n - base, 10_000):
+                fh.write(sstr[i:i + 10_000] + "\n")
+    with open(bed, "w") as fh:
+        for rec in accepted:
+            _, s, e, svtype, info, plan = rec
+            if plan[0] == "bnd":
+                _, _, chr2, r2, s1, s2 = plan
+                info = "h1:%s:%d:%s:%s" % (chr2, r2, s1, s2)
+            fh.write("%s\t%d\t%d\t%s\t%s\t0\n" % (chrom, s, e, svtype,
+                                                  info))
+    with open(gt_bed, "w") as fh:
+        for c, n in chroms:
+            fh.write("%s\t0\t%d\th1\t50.0\n" % (c, n))
+    return dict(bam=bam, fa=fa, bed=bed, gt=gt_bed, n_reads=n_reads,
+                n_sv=len(accepted), n_dropped=dropped)

@@ -13,13 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cutesv_tpu_torch.config import Config
 from cutesv_tpu_torch.genotype import cover_counts
 from cutesv_tpu_torch.ops import cover
 from cutesv_tpu_torch.ops.indel_cluster import indel_cluster_structure
+from cutesv_tpu_torch.ops.pair_cluster import pair_cluster_structure
 from cutesv_tpu_torch.ops.sweep import cover_counts_plain
 from cutesv_tpu_torch.pipeline import run_pipeline
-from cutesv_tpu_torch.tools.simulate import simulate
+from cutesv_tpu_torch.tools.simulate import replay, simulate
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +63,67 @@ def test_cluster_program_matches_cpu(card):
         n, 200, 3, rows) for dev in ("cpu", card)]
     for k in ("cid", "pos", "length", "stream_idx", "n_kept"):
         assert torch.equal(outs[0][k], outs[1][k].cpu()), k
+
+
+def test_pair_program_matches_cpu(card):
+    rng = np.random.default_rng(37)
+    n, rows = 60_000, 65_536
+    arrs = [np.zeros(rows, np.int32) for _ in range(4)]
+    k1, k2, aux, rid = chip_smoke.synthetic_pair_rows(rng, n, True)
+    for buf, a in zip(arrs, (k1, k2, aux, rid)):
+        buf[:n] = a
+    for break_on_k2 in (False, True):
+        outs = [pair_cluster_structure(
+            *(torch.from_numpy(a).to(dev) for a in arrs), n, 150, 3, rows,
+            break_on_k2) for dev in ("cpu", card)]
+        for k in ("cid", "k1", "k2", "rid", "stream_idx", "n_kept"):
+            assert torch.equal(outs[0][k], outs[1][k].cpu()), k
+
+
+def _three_runs(tmp_path, bam, fa, monkeypatch):
+    """The default (streaming) run on the card, on the CPU, and the host
+    engine on the card: VCF bodies and the card run's stats."""
+    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
+    monkeypatch.delenv("CUTESV_STREAM_TAIL", raising=False)
+    bodies, main = {}, None
+    for tag, device, engine in (("cuda", "cuda", "device"),
+                                ("cpu", "cpu", "device"),
+                                ("host", "cuda", "host")):
+        out = tmp_path / ("%s.vcf" % tag)
+        cfg = Config(input=bam, reference=fa, output=str(out),
+                     work_dir=str(tmp_path / ("w" + tag)), genotype=True,
+                     min_support=5, engine=engine)
+        before = cover.LAUNCHES
+        stats = run_pipeline(cfg, ["x"], device=device)
+        if tag == "cuda":
+            main = dict(stats, launches=cover.LAUNCHES - before)
+        bodies[tag] = [l for l in out.read_text().splitlines()
+                       if not l.startswith(("##fileDate", "##CommandLine"))]
+    assert bodies["cuda"] == bodies["cpu"] == bodies["host"]
+    return bodies["cuda"], main
+
+
+def test_streaming_run_equals_cpu_and_host(card, tmp_path, monkeypatch):
+    sim = simulate(str(tmp_path / "sim"), genome_mb=2.0, n_chroms=4,
+                   coverage=20, read_len=20_000, seed=6)
+    body, main = _three_runs(tmp_path, sim["bam"], sim["fa"], monkeypatch)
+    assert main["streaming"] and main["early_dispatched"] >= 1
+    assert main["launches"] == 1   # the final batch rides one launch
+    assert sum(1 for l in body if not l.startswith("#")) >= 20
+
+
+def test_alltypes_run_equals_cpu_and_host(card, tmp_path, monkeypatch):
+    bed = str(tmp_path / "grid.bed")
+    n = chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
+    info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
+                  coverage=20, seed=1)
+    assert info["n_sv"] == n
+    _, main = _three_runs(tmp_path, info["bam"], info["fa"], monkeypatch)
+    assert main["launches"] == 1   # DUP/INV (and TRA) windows: one flush
+    recall = chip_smoke.alltypes_recall(info["bed"], str(tmp_path /
+                                                         "cuda.vcf"))
+    for svtype, (hit, total) in recall.items():
+        assert total > 0 and hit >= 0.99 * total, (svtype, hit, total)
 
 
 def test_cuda_run_equals_cpu_run(card, tmp_path):
