@@ -37,6 +37,17 @@ result line:
          on cpu, and --engine host on cuda. Equal bodies, the main path's
          launches as above, and >= 99% of each planted type called with
          its type within 1 kb (BND per breakend pair)
+  cram   encodes the all-types BAM as reference-based CRAM 3.0 and 3.1
+         with the port's CramWriter and calls each once on the main path
+         (native decoder, cuda): the native decoder ran, the decode
+         streamed, the cover kernel launched 1 to `flushes` times, and
+         the body equals the all-types BAM body
+  forcecall  -Ivcf with the all-types discovery VCF over the all-types
+         BAM and its CRAM 3.0, and with the 100 Mb discovery VCF over the
+         100 Mb BAM, on cuda: every discovery record comes back (CHROM,
+         POS, ID, SVTYPE), the BAM and CRAM bodies are equal, and the
+         cover kernel launched 0 times (force calling counts reads on the
+         host); the share of GTs equal to discovery's, per SV type
   k1 main-path shapes  the kernel (bare launch, wrapper, plain version,
          equal) at the window and read counts of each main path's last
          launch
@@ -105,6 +116,19 @@ def codec_line() -> str:
     have += ["%s %s" % (h, "yes" if os.path.exists("/usr/include/" + h)
                         else "no")
              for h in ("zlib.h", "lzma.h", "bzlib.h", "libdeflate.h")]
+    return ", ".join(have)
+
+
+def pycodec_line() -> str:
+    """Whether this Python has the lzma and bz2 modules (the Python CRAM
+    codecs import them; the C++ decoder does not need them)."""
+    have = []
+    for mod in ("lzma", "bz2"):
+        try:
+            __import__(mod)
+            have.append("%s yes" % mod)
+        except ImportError as exc:
+            have.append("%s no (%s)" % (mod, exc))
     return ", ".join(have)
 
 
@@ -229,6 +253,7 @@ def phase_k1_main(res: dict) -> None:
 
     spans = {"e2e_100mb": int(E2E_MB * 1e6),
              "alltypes": ALLTYPES_MB * 1_000_000}
+    spans.update({"cram_%d.%d" % v: spans["alltypes"] for v in CRAM_VERSIONS})
     res["k1"]["main_path"] = {}
     for path, (n_sv, n_reads) in res["main_shapes"].items():
         rng = np.random.default_rng(4)
@@ -506,6 +531,9 @@ ALLTYPES_RUNS = (
 )
 ALLTYPES_MB = 64          # tools/simulate.py::replay's window cap
 ALLTYPES_SPACING = 20_000
+# the all-types genome: the 64 Mb window plus its two mate chromosomes
+# (under 500 kb each: tools/simulate.py::replay caps them at 400 kb)
+ALLTYPES_GENOME_BP = ALLTYPES_MB * 1_000_000 + 2 * 500_000
 FLUSH_BP = 1_000_000_000  # pipeline._FLUSH_BP: one cover launch at most
 
 
@@ -533,10 +561,17 @@ def _drive(tag: str, argv: list, device: str, env: dict) -> dict:
             else:
                 os.environ[k] = v
     core = ""
-    if stats["decoder"] == "native":
+    if "walk_s" in stats:
         core = (" (decoder walk %.3f s, inflate %.3f core-s, records %.3f "
                 "core-s)" % (stats["walk_s"], stats["inflate_core_s"],
                              stats["records_core_s"]))
+    if "sites" in stats:  # force calling
+        log("%s: %d sites, %s decoder; decode %.3f s, call %.4f s, emit "
+            "%.4f s, total %.2f s; cover launches %d"
+            % (tag, stats["sites"], stats["decoder"], stats["decode_s"],
+               stats["call_s"], stats["emit_s"], stats["wall_s"],
+               stats["launches"]))
+        return stats
     log("%s: %d calls; decode %.3f s%s, resolve %.4f s, emit %.4f s, total "
         "%.2f s; cover launches %d, last at %s"
         % (tag, stats["n_calls"], stats["decode_s"], core,
@@ -555,17 +590,23 @@ def _drive(tag: str, argv: list, device: str, env: dict) -> dict:
     return stats
 
 
+def _fresh(prefix: str, tag: str) -> tuple:
+    """A run's output VCF path (removed) and its emptied work dir."""
+    out = os.path.join(WORK, "%s_%s.vcf" % (prefix, tag))
+    wd = os.path.join(WORK, "wd_%s_%s" % (prefix, tag))
+    if os.path.exists(out):
+        os.remove(out)
+    os.makedirs(wd, exist_ok=True)
+    for f in os.listdir(wd):
+        os.remove(os.path.join(wd, f))
+    return out, wd
+
+
 def _runs(prefix: str, bam: str, fa: str, table, min_support: int) -> dict:
     """Every run of ``table`` over one corpus: {tag: (vcf path, stats)}."""
     runs = {}
     for tag, decoder, device, extra, env in table:
-        out = os.path.join(WORK, "%s_%s.vcf" % (prefix, tag))
-        wd = os.path.join(WORK, "wd_%s_%s" % (prefix, tag))
-        if os.path.exists(out):
-            os.remove(out)
-        os.makedirs(wd, exist_ok=True)
-        for f in os.listdir(wd):
-            os.remove(os.path.join(wd, f))
+        out, wd = _fresh(prefix, tag)
         stats = _drive("%s %s" % (prefix, tag),
                        [bam, fa, out, wd, "--genotype", "-s",
                         str(min_support), "--decoder", decoder] + extra,
@@ -618,6 +659,8 @@ def phase_e2e(res: dict) -> None:
                              "CUTESV_STREAM_DISPATCH=0 run did")
     _check_main("e2e", main, int(E2E_MB * 1e6))
     res["launches_by_path"] = {"e2e_100mb": main["launches"]}
+    res["corpora"] = {"e2e_100mb": dict(bam=sim["bam"], fa=sim["fa"],
+                                        vcf=runs["native_cuda"][0])}
     res["main_shapes"] = {"e2e_100mb": main["shape"]}
     hit, n, gts = _recall(sim["bed"], runs["native_cuda"][0])
     log("e2e recall: %d / %d planted DEL/INS called (%.4f); GT tally %s; "
@@ -653,7 +696,9 @@ def phase_alltypes(res: dict) -> None:
            time.time() - t0))
     runs = _runs("alltypes", info["bam"], info["fa"], ALLTYPES_RUNS, 5)
     main = runs["native_cuda"][1]
-    _check_main("alltypes", main, window_bp + 2 * 500_000)
+    _check_main("alltypes", main, ALLTYPES_GENOME_BP)
+    res["corpora"]["alltypes"] = dict(bam=info["bam"], fa=info["fa"],
+                                      vcf=runs["native_cuda"][0])
     res["launches_by_path"]["alltypes"] = main["launches"]
     res["main_shapes"]["alltypes"] = main["shape"]
     recall = alltypes_recall(info["bed"], runs["native_cuda"][0])
@@ -667,6 +712,146 @@ def phase_alltypes(res: dict) -> None:
     res["alltypes"] = {tag: {k: st[k] for k in STAT_KEYS if k in st}
                        for tag, (_, st) in runs.items()}
     res["alltypes_recall"] = recall
+
+
+CRAM_VERSIONS = ((3, 0), (3, 1))
+CRAM_MAX_SLICE = 10_000
+
+
+def write_cram(bam: str, fa: str, cram: str, version,
+               max_slice: int = CRAM_MAX_SLICE) -> int:
+    """``bam`` re-encoded as a reference-based CRAM by the port's
+    CramWriter, with the sequence of every header reference (the mate
+    chromosomes included) from ``fa``; returns the record count."""
+    from cutesv_tpu_torch.io.bam import BamReader
+    from cutesv_tpu_torch.io.cram import CramWriter
+    from cutesv_tpu_torch.io.fasta import FastaFile
+
+    fasta = FastaFile(fa)
+    n = 0
+    with BamReader(bam) as r:
+        seqs = {name: fasta.fetch(name) for name, _ in r.references}
+        with CramWriter(cram, r.references, max_slice=max_slice,
+                        ref_seqs=seqs, version=version) as w:
+            for rec in r:
+                w.write(rec)
+                n += 1
+    return n
+
+
+def _timed(seconds: float) -> str:
+    """A decoder timer; the CRAM front end leaves the record-walk and
+    inflate timers of the BAM path at 0."""
+    return "%.3f" % seconds if seconds else "not timed"
+
+
+def phase_cram(res: dict) -> None:
+    """The all-types corpus as CRAM 3.0 and 3.1, each called once on the
+    main path; each body must equal the all-types BAM body."""
+    corpus = res["corpora"]["alltypes"]
+    bam_body = _body(corpus["vcf"])
+    bam = res["alltypes"]["native_cuda"]
+    res["cram"] = {}
+    for version in CRAM_VERSIONS:
+        tag = "%d.%d" % version
+        cram = os.path.join(WORK, "alltypes_%s.cram" % tag)
+        t0 = time.time()
+        n = write_cram(corpus["bam"], corpus["fa"], cram, version)
+        enc_s = time.time() - t0
+        log("cram %s: %d records encoded in %.1f s (max_slice %d), %.1f MB "
+            "against the BAM's %.1f MB"
+            % (tag, n, enc_s, CRAM_MAX_SLICE, os.path.getsize(cram) / 1e6,
+               os.path.getsize(corpus["bam"]) / 1e6))
+        out, wd = _fresh("cram", tag)
+        stats = _drive("cram %s native_cuda" % tag,
+                       [cram, corpus["fa"], out, wd, "--genotype", "-s", "5",
+                        "--decoder", "native"], "cuda", {})
+        if stats["decoder"] != "native":
+            raise AssertionError("cram %s ran the %s decoder"
+                                 % (tag, stats["decoder"]))
+        if not stats.get("streaming"):
+            raise AssertionError("cram %s main path did not stream" % tag)
+        _check_main("cram %s" % tag, stats, ALLTYPES_GENOME_BP)
+        if _body(out) != bam_body:
+            raise AssertionError("cram %s VCF body differs from the "
+                                 "all-types BAM body" % tag)
+        log("cram %s against the BAM (same call): decode %.3f / %.3f s, "
+            "walk %s / %.3f s, inflate %s / %.3f core-s, records %.3f / "
+            "%.3f core-s; VCF body equal"
+            % (tag, stats["decode_s"], bam["decode_s"],
+               _timed(stats["walk_s"]), bam["walk_s"],
+               _timed(stats["inflate_core_s"]), bam["inflate_core_s"],
+               stats["records_core_s"], bam["records_core_s"]))
+        res["launches_by_path"]["cram_" + tag] = stats["launches"]
+        res["main_shapes"]["cram_" + tag] = stats["shape"]
+        res["cram"][tag] = dict(
+            {k: stats[k] for k in STAT_KEYS if k in stats}, encode_s=enc_s,
+            records=n, mb=os.path.getsize(cram) / 1e6)
+        corpus["cram_" + tag] = cram
+
+
+def _sites(path: str) -> list:
+    """[((CHROM, POS, ID, SVTYPE), GT)] of a VCF's records."""
+    rows = []
+    for line in _body(path):
+        if line.startswith("#"):
+            continue
+        f = line.split("\t")
+        info = dict(kv.split("=", 1) for kv in f[7].split(";") if "=" in kv)
+        rows.append(((f[0], int(f[1]), f[2], info["SVTYPE"]),
+                     f[9].split(":")[0]))
+    return rows
+
+
+# the force-calling runs: (tag, corpus, input); each regenotypes the
+# corpus's main-path discovery VCF
+FORCECALL_RUNS = (("alltypes_bam", "alltypes", "bam"),
+                  ("alltypes_cram_3.0", "alltypes", "cram_3.0"),
+                  ("e2e_100mb_bam", "e2e_100mb", "bam"))
+
+
+def phase_forcecall(res: dict) -> None:
+    """-Ivcf on the card: every discovery record comes back, the BAM and
+    CRAM bodies are equal, and no cover launch (force calling counts its
+    reads on the host, as the JAX package does)."""
+    res["forcecall"] = {}
+    bodies = {}
+    for tag, name, kind in FORCECALL_RUNS:
+        corpus = res["corpora"][name]
+        out, wd = _fresh("forcecall", tag)
+        stats = _drive("forcecall %s" % tag,
+                       [corpus[kind], corpus["fa"], out, wd, "-Ivcf",
+                        corpus["vcf"], "--genotype"], "cuda", {})
+        if stats["decoder"] != "native":
+            raise AssertionError("forcecall %s ran the %s decoder"
+                                 % (tag, stats["decoder"]))
+        if stats["launches"] != 0:
+            raise AssertionError("forcecall %s launched the cover kernel %d "
+                                 "times" % (tag, stats["launches"]))
+        disc, got = _sites(corpus["vcf"]), _sites(out)
+        if sorted(k for k, _ in got) != sorted(k for k, _ in disc):
+            raise AssertionError(
+                "forcecall %s: %d records for %d discovery records, or not "
+                "the same CHROM/POS/ID/SVTYPE" % (tag, len(got), len(disc)))
+        disc_gt = dict(disc)
+        same = {}
+        for key, gt in got:
+            hit_n = same.setdefault(key[3], [0, 0])
+            hit_n[0] += gt == disc_gt[key]
+            hit_n[1] += 1
+        share = {t: round(h / n, 4) for t, (h, n) in sorted(same.items())}
+        log("forcecall %s: all %d discovery records back; GT equal to "
+            "discovery's (share per type) %s"
+            % (tag, len(disc), json.dumps(share)))
+        bodies[tag] = _body(out)
+        res["launches_by_path"]["forcecall_" + tag] = stats["launches"]
+        res["forcecall"][tag] = dict(
+            {k: stats[k] for k in ("sites", "decode_s", "call_s", "emit_s",
+                                   "wall_s")}, gt_equal=share)
+    if bodies["alltypes_bam"] != bodies["alltypes_cram_3.0"]:
+        raise AssertionError("forcecall bodies of the all-types BAM and "
+                             "CRAM differ")
+    log("forcecall: the all-types BAM and CRAM 3.0 bodies are equal")
 
 
 def phase_build() -> None:
@@ -710,6 +895,7 @@ def main() -> int:
     log("host: %d usable cores (sched_getaffinity), %d in all"
         % (len(os.sched_getaffinity(0)), os.cpu_count()))
     log("codecs: %s" % codec_line())
+    log("python codec modules: %s" % pycodec_line())
     res: dict = {}
     phase_build()
     phase_k1(res)
@@ -717,6 +903,8 @@ def main() -> int:
     phase_pair(res)
     phase_e2e(res)
     phase_alltypes(res)
+    phase_cram(res)
+    phase_forcecall(res)
     phase_k1_main(res)
     # every phase passed (each raises otherwise), so the kernel is equal;
     # ``launches`` is the all-types main path's count (this port's default
@@ -732,7 +920,8 @@ def main() -> int:
         "cluster_ms": res["cluster_ms"],
         "pair_cluster_ms": res["pair_cluster_ms"], "e2e": res["e2e"],
         "alltypes": res["alltypes"],
-        "alltypes_recall": res["alltypes_recall"]}))
+        "alltypes_recall": res["alltypes_recall"], "cram": res["cram"],
+        "forcecall": res["forcecall"]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", "-v", action="version",
                    version="%(prog)s " + __version__)
     p.add_argument("input", metavar="[BAM]", type=str,
-                   help="Sorted .bam file from NGMLR or Minimap2.")
+                   help="Sorted .bam or .cram file from NGMLR or Minimap2 "
+                        "(a CRAM is decoded against the reference).")
     p.add_argument("reference", type=str,
                    help="The reference genome in fasta format.")
     p.add_argument("output", type=str, help="Output VCF format file.")
@@ -104,7 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = p.add_argument_group("Force calling")
     g.add_argument("-Ivcf", dest="Ivcf", type=str, default=None,
-                   help="Force calling/regenotyping (not ported yet).")
+                   help="Force calling/regenotyping: re-genotype every site "
+                        "of the given VCF against this BAM's signatures "
+                        "(enabled here; the reference CLI disables it).")
 
     g = p.add_argument_group("Advanced")
     g.add_argument("--max_cluster_bias_INS", type=int,
@@ -191,7 +194,10 @@ def args_to_config(args: argparse.Namespace, explicit=()) -> Config:
 
 
 def run(argv=None) -> dict:
-    """Parse ``argv`` and run the discovery pipeline; returns its stats."""
+    """Parse ``argv`` and run the discovery pipeline, or force calling
+    when ``-Ivcf`` is given; returns the run's stats. The device is
+    resolved first, so ``--device cuda`` without a card raises in both
+    modes."""
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -199,12 +205,21 @@ def run(argv=None) -> dict:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(message)s")
     logging.info("Running %s" % " ".join(sys.argv))
-    from cutesv_tpu_torch.pipeline import run_pipeline
+    from cutesv_tpu_torch.utils.torchsetup import resolve_device
+    device = resolve_device(args.device)
     t0 = time.time()
-    stats = run_pipeline(cfg, argv, device=args.device)
-    logging.info("Calls: %d  (decode %.2fs, resolve %.2fs, emit %.2fs)"
-                 % (stats["n_calls"], stats["decode_s"], stats["resolve_s"],
-                    stats["emit_s"]))
+    if cfg.Ivcf is not None:
+        from cutesv_tpu_torch.forcecalling import run_force_calling
+        stats = run_force_calling(cfg, argv, device=device)
+        logging.info("Sites: %d  (decode %.2fs, call %.2fs, emit %.2fs)"
+                     % (stats["sites"], stats["decode_s"], stats["call_s"],
+                        stats["emit_s"]))
+    else:
+        from cutesv_tpu_torch.pipeline import run_pipeline
+        stats = run_pipeline(cfg, argv, device=device)
+        logging.info("Calls: %d  (decode %.2fs, resolve %.2fs, emit %.2fs)"
+                     % (stats["n_calls"], stats["decode_s"],
+                        stats["resolve_s"], stats["emit_s"]))
     logging.info("Finished in %0.2f seconds." % (time.time() - t0))
     return stats
 

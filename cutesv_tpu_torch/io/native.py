@@ -1,11 +1,13 @@
-"""ctypes binding for the native BAM signature decoder (``native/``).
+"""ctypes binding for the native BAM/CRAM signature decoder (``native/``).
 
-:func:`decode` runs ``native/bamdecode.cpp`` over a whole BAM and returns
-the same logical content as the Python decoder's signature extraction,
-as numpy SoA arrays; :class:`StreamingDecode` runs it on a native thread
-and snapshots completed chromosomes while it runs. The library is built with ``g++`` at first use
-(``ops/build.py::decoder_library``); a failed build or load raises, and
-nothing here falls back to the Python reader.
+:func:`decode` runs ``native/bamdecode.cpp`` over a whole BAM, or a CRAM
+with its reference FASTA (the CRAM front end of ``cramdecode.inc``), and
+returns the same logical content as the Python decoder's signature
+extraction, as numpy SoA arrays; :class:`StreamingDecode` runs it on a
+native thread and snapshots completed chromosomes while it runs;
+:func:`block_decode` decodes one CRAM block. The library is built with
+``g++`` at first use (``ops/build.py::decoder_library``); a failed build
+or load raises, and nothing here falls back to the Python reader.
 
 Field ids are kept in lockstep with the switch in bamdecode.cpp.
 """
@@ -66,8 +68,34 @@ def get_lib() -> ctypes.CDLL:
     lib.bamdecode_ins_seq_spans.restype = i64
     lib.bamdecode_ins_seq_spans.argtypes = [
         vp, ctypes.POINTER(i64), ctypes.POINTER(i64), i64, ctypes.c_char_p]
+    # one CRAM block payload (block_decode)
+    lib.bamdecode_block_decode.restype = vp
+    lib.bamdecode_block_decode.argtypes = [
+        ctypes.c_int, ctypes.c_char_p, i64, i64, ctypes.POINTER(i64),
+        ctypes.POINTER(ctypes.c_char_p)]
+    lib.bamdecode_block_free.argtypes = [vp]
     _lib = lib
     return lib
+
+
+def block_decode(method: int, data: bytes, raw_size: int) -> bytes:
+    """Decompress one CRAM block payload with the native decoder's codec
+    for ``method`` (0-8): the seam that holds the C++ block codecs
+    against the Python ones of ``io/cram_codecs*.py``. Raises ValueError
+    with the native message on failure."""
+    lib = get_lib()
+    out_len = ctypes.c_int64()
+    err = ctypes.c_char_p()
+    ptr = lib.bamdecode_block_decode(method, data, len(data), raw_size,
+                                     ctypes.byref(out_len),
+                                     ctypes.byref(err))
+    if not ptr:
+        raise ValueError("native block decode: %s"
+                         % (err.value or b"?").decode())
+    try:
+        return ctypes.string_at(ptr, out_len.value)
+    finally:
+        lib.bamdecode_block_free(ptr)
 
 
 _DTYPES = {  # field id -> numpy dtype (None = raw bytes)
@@ -161,7 +189,9 @@ def _err_detail(lib, handle) -> str:
 
 class NativeUnsupported(IOError):
     """The native decoder met a feature it does not implement (status 10,
-    e.g. a legacy lzma-"alone" CRAM block or a CRAM 2.x file)."""
+    e.g. a legacy lzma-"alone" CRAM block, a CRAM 2.x file or a CRAM
+    without its reference FASTA). ``pipeline.decode_bam`` hands such a
+    file to the Python reader and reports ``decoder="python"``."""
 
 
 def _call_args(cfg, bed_ids, reference):
@@ -271,11 +301,12 @@ class StreamingDecode:
 
     DONE = 2 ** 31 - 1  # INT32_MAX progress sentinel
 
-    def __init__(self, path: str, cfg, bed_ids=None):
+    def __init__(self, path: str, cfg, bed_ids=None, reference=None):
+        """``reference``: the FASTA of a CRAM input (None for a BAM)."""
         self._lib = get_lib()
         self._path = path
         params, ref_arg, bc_p, bs_p, be_p, n_bed, ka = _call_args(
-            cfg, bed_ids, None)
+            cfg, bed_ids, reference)
         self._keepalive = ka
         self._handle = self._lib.bamdecode_start(
             path.encode(), ref_arg, params, bc_p, bs_p, be_p, n_bed)

@@ -1,6 +1,7 @@
 """End-to-end calling pipeline on one GPU.
 
-BAM decode (the C++ decoder by default, the Python reader on request) ->
+BAM or CRAM decode (the C++ decoder by default, the Python reader on
+request or for a CRAM feature the C++ decoder does not implement) ->
 signature store -> resolution (DEL/INS and DUP/INV/TRA clustering on the
 device, emission on the host) -> genotype fill (one batched pass of the
 CUDA cover-count kernel per int32-safe flush, TRA windows included) ->
@@ -45,9 +46,9 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 
 def check_slice(cfg: Config) -> None:
-    """Raise for every option this slice of the port does not carry."""
-    if cfg.Ivcf is not None:
-        raise _not_ported("force calling (-Ivcf)", 14)
+    """Raise for every option this slice of the port does not carry.
+    Force calling (``cfg.Ivcf``) is not looked at: the CLI routes it to
+    ``forcecalling.run_force_calling``, as the JAX package's does."""
     if cfg.n_shards > 1:
         raise _not_ported("--n_shards > 1", 11)
     if cfg.distributed:
@@ -77,22 +78,30 @@ def load_bed_regions(path: Optional[str]) -> Optional[Dict[str, list]]:
 
 
 def decode_bam(cfg: Config, device=None):
-    """Stream the BAM once, extracting signatures + read census.
+    """Stream the BAM or CRAM once, extracting signatures + read census.
+    A CRAM is decoded against ``cfg.reference``, its FASTA.
 
     ``cfg.decoder`` "native" or "auto": the C++ decoder (native/), built
-    with g++ at first use; a failed build or load raises, with no
-    fallback. With the device engine the native decode streams
-    (:func:`_stream_dispatch_ok`) and dispatches cluster programs on
-    ``device`` while it runs. "python": the pure-Python reader, the
-    behavioral oracle. The store carries ``decode_breakdown``: which
-    decoder ran and, for the native one, its record-walk wall and
-    inflate / record-parse core-seconds (plus the streaming split)."""
+    with g++ at first use; a failed build or load, or a malformed file,
+    raises. A CRAM feature the C++ decoder does not implement (a legacy
+    lzma-"alone" block, a CRAM 2.x file: ``NativeUnsupported``) is read
+    by the Python reader instead, as in the JAX package; the run logs it
+    and reports ``decoder="python"``. With the device engine the native
+    decode streams (:func:`_stream_dispatch_ok`) and dispatches cluster
+    programs on ``device`` while it runs. "python": the pure-Python
+    reader, the behavioral oracle. The store carries
+    ``decode_breakdown``: which decoder ran and, for the native one, its
+    record-walk wall and inflate / record-parse core-seconds (plus the
+    streaming split)."""
     with open(cfg.input, "rb") as probe:
-        if probe.read(4) == b"CRAM":
-            raise _not_ported("CRAM input", 15)
+        is_cram = probe.read(4) == b"CRAM"
     if cfg.decoder in ("native", "auto"):
-        return _decode_bam_native(cfg, device)
-    if cfg.decoder != "python":
+        from cutesv_tpu_torch.io.native import NativeUnsupported
+        try:
+            return _decode_bam_native(cfg, device, is_cram)
+        except NativeUnsupported as exc:
+            log.info("native decoder: %s; using the python reader", exc)
+    elif cfg.decoder != "python":
         raise ValueError("unknown decoder %r (use native, python or auto)"
                          % cfg.decoder)
     return _decode_bam_python(cfg)
@@ -111,13 +120,15 @@ def _n_cores() -> int:
 
 def _stream_dispatch_ok(cfg: Config) -> bool:
     """Streaming decode->dispatch overlap for single-process device-engine
-    BAM runs: cluster programs for completed chromosomes launch while
-    later chromosomes still decode. CUTESV_STREAM_DISPATCH=0 forces it
-    off; CUTESV_STREAM_DISPATCH=1 bypasses only the core-count heuristic
-    (the snapshot sort/pad/upload work contends with the inflate pool
-    when there is a single core); the structural gate (device engine,
-    non-distributed, no force calling) always applies. CRAM input is
-    refused before this point (ROADMAP item 15)."""
+    runs: cluster programs for completed chromosomes launch while later
+    chromosomes still decode. A CRAM streams as a BAM does (the CRAM
+    front end feeds the same per-record extraction, so per-chromosome
+    progress and snapshots work unchanged). CUTESV_STREAM_DISPATCH=0
+    forces it off; CUTESV_STREAM_DISPATCH=1 bypasses only the core-count
+    heuristic (the snapshot sort/pad/upload work contends with the
+    inflate pool when there is a single core); the structural gate
+    (device engine, non-distributed, no force calling: it never uses
+    early programs, so its decode runs plain) always applies."""
     forced = os.environ.get("CUTESV_STREAM_DISPATCH")
     if forced is not None:
         if forced != "1":
@@ -345,7 +356,8 @@ def _attach_early_to_store(store, nd, handles, fingerprints,
                 n_early))
 
 
-def _decode_bam_native_streaming(cfg: Config, bed_ids, device):
+def _decode_bam_native_streaming(cfg: Config, bed_ids, device,
+                                 reference=None):
     """Decode on a native thread; as each chromosome completes, snapshot
     its rows, sort/dedup them with the store's exact keys (local
     name/seq ranks are order-isomorphic to the final global ranks
@@ -359,7 +371,7 @@ def _decode_bam_native_streaming(cfg: Config, bed_ids, device):
     native_io.get_lib()  # a failed decoder build raises before the device
     device = resolve_device(device)
     t_n0 = time.time()
-    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids)
+    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, reference)
     try:
         handles, fingerprints, early_results, poll_timing = \
             _streaming_poll_loop(sd, cfg, device)
@@ -392,13 +404,17 @@ def _decode_bam_native_streaming(cfg: Config, bed_ids, device):
     return store, None, references, nd.n_records
 
 
-def _decode_bam_native(cfg: Config, device=None):
+def _decode_bam_native(cfg: Config, device=None, is_cram=False):
     from cutesv_tpu_torch.io import native as native_io
     bed_ids = None
     if cfg.include_bed is not None:
         bed = load_bed_regions(cfg.include_bed)
         # map chrom names to header ids via a cheap header-only read
-        header = BamReader(cfg.input)
+        if is_cram:
+            from cutesv_tpu_torch.io.cram import CramReader
+            header = CramReader(cfg.input, reference=cfg.reference or None)
+        else:
+            header = BamReader(cfg.input)
         name_to_id = {n: i for i, (n, _) in enumerate(header.references)}
         header.close()
         bc, bs, be = [], [], []
@@ -419,10 +435,11 @@ def _decode_bam_native(cfg: Config, device=None):
             bc, bs, be = [0], [-2], [-1]
         bed_ids = (np.array(bc, np.int32), np.array(bs, np.int64),
                    np.array(be, np.int64))
+    reference = cfg.reference if is_cram else None  # a CRAM's FASTA
     if _stream_dispatch_ok(cfg):
         # no fallback: a failing dispatch or tail raises
-        return _decode_bam_native_streaming(cfg, bed_ids, device)
-    nd = native_io.decode(cfg.input, cfg, bed_ids)
+        return _decode_bam_native_streaming(cfg, bed_ids, device, reference)
+    nd = native_io.decode(cfg.input, cfg, bed_ids, reference=reference)
     _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
                              nd.chroms)
     store = sigstore.build_store_native(nd)
@@ -464,11 +481,13 @@ def _check_coordinate_sorted(chr_ids, starts, chrom_names) -> None:
 
 
 def _decode_bam_python(cfg: Config):
+    from cutesv_tpu_torch.io.cram import open_alignment_file
+
     candidates = extract.new_candidate_dict()
     census_rows: List[tuple] = []
     allread_rows: List[tuple] = []
     bed = load_bed_regions(cfg.include_bed)
-    reader = BamReader(cfg.input)
+    reader = open_alignment_file(cfg.input, reference=cfg.reference or None)
     chrom_names = [n for n, _ in reader.references]
     chrom_lengths = {n: l for n, l in reader.references}
     n_records = 0

@@ -147,3 +147,32 @@ def test_cuda_run_equals_cpu_run(card, tmp_path):
     assert bodies["cuda"] == bodies["cpu"]
     assert sum(1 for l in bodies["cuda"] if not l.startswith("#")) >= 10
     assert os.path.exists(sim["bed"])
+
+
+def test_alltypes_cram_on_cuda_equals_cpu(card, tmp_path, monkeypatch):
+    """The all-types corpus as a reference-based CRAM: the default run on
+    the card gives the body of the CPU run and of the BAM, through the
+    native decoder and one cover launch."""
+    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
+    bed = str(tmp_path / "grid.bed")
+    chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
+    info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
+                  coverage=20, seed=1)
+    cram = str(tmp_path / "rp.cram")
+    chip_smoke.write_cram(info["bam"], info["fa"], cram, (3, 0))
+    bodies = {}
+    for tag, inp, device in (("cuda", cram, "cuda"), ("cpu", cram, "cpu"),
+                             ("bam", info["bam"], "cpu")):
+        out = tmp_path / ("%s.vcf" % tag)
+        cfg = Config(input=inp, reference=info["fa"], output=str(out),
+                     work_dir=str(tmp_path / ("w" + tag)), genotype=True,
+                     min_support=5)
+        before = cover.LAUNCHES
+        stats = run_pipeline(cfg, ["x"], device=device)
+        assert stats["decoder"] == "native"
+        if tag == "cuda":
+            assert stats["streaming"]
+            assert cover.LAUNCHES == before + 1
+        bodies[tag] = [l for l in out.read_text().splitlines()
+                       if not l.startswith(("##fileDate", "##CommandLine"))]
+    assert bodies["cuda"] == bodies["cpu"] == bodies["bam"]

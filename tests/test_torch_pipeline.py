@@ -13,6 +13,7 @@ import sys
 import pytest
 import torch
 
+import chip_smoke
 from cutesv_tpu import pipeline as jpipe
 from cutesv_tpu.config import Config as JConfig
 from cutesv_tpu_torch import cli as tcli
@@ -183,7 +184,6 @@ def test_default_device_raises_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("Ivcf", "calls.vcf", "item 14"),
     ("n_shards", 2, "item 11"),
     ("distributed", True, "item 12"),
     ("profile", True, "item 13"),
@@ -198,14 +198,17 @@ def test_unported_options_raise(tmp_path, option, value, item):
 
 
 def test_cram_input_raises(tmp_path):
-    cram = tmp_path / "in.cram"
-    cram.write_bytes(b"CRAM\x03\x00" + b"\x00" * 32)
-    fa = tmp_path / "r.fa"
-    fa.write_text(">c\nACGT\n")
-    cfg = TConfig(input=str(cram), reference=str(fa),
-                  output=str(tmp_path / "o.vcf"), work_dir="")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tpipe.run_pipeline(cfg, ["x"], device="cpu")
+    """A CRAM is decoded against its reference: without the FASTA the
+    C++ decoder reports the file unsupported and the Python reader raises
+    the JAX package's error, on either decoder."""
+    bam, fa = build_engines_fixture(tmp_path)
+    cram = tmp_path / "m.cram"
+    chip_smoke.write_cram(str(bam), str(fa), str(cram), (3, 0))
+    for decoder in ("native", "python"):
+        cfg = TConfig(input=str(cram), reference="", decoder=decoder,
+                      min_support=3)
+        with pytest.raises(ValueError, match="requires the reference FASTA"):
+            tpipe.decode_bam(cfg, device="cpu")
 
 
 def test_port_imports_no_jax():
