@@ -6,8 +6,8 @@
 Phases, all of them, in order; any failure exits non-zero and prints no
 result line:
 
-  card   the card's name and power limit (nvidia-smi), the host's
-         usable cores and compression libraries; no CUDA -> error
+  card   the card's name, power limit and compute mode (nvidia-smi), the
+         host's usable cores and compression libraries; no CUDA -> error
   build  builds both native libraries at once: nvcc for every kernel of
          cutesv_tpu_torch/csrc, g++ for the BAM decoder of native/
   k1     the cover-count kernel at genome scale (32,768 windows x
@@ -48,9 +48,27 @@ result line:
          POS, ID, SVTYPE), the BAM and CRAM bodies are equal, and the
          cover kernel launched 0 times (force calling counts reads on the
          host); the share of GTs equal to discovery's, per SV type
+  distributed  the multi-host mode as two processes on the one card
+         (spawned children, each calling the CLI entry point with
+         --distributed --coordinator localhost:<free port>
+         --num_processes 2 --process_id k --device cuda --genotype -s 5)
+         over the 100 Mb BAM (the ranged streaming decode), the all-types
+         BAM and its CRAM 3.0 (the container-aligned plain ranged
+         decode): both exit 0 and report the sharded decode, process 1
+         writes no VCF, process 0's body equals the main path's body of
+         that corpus, and the two processes' cover launches sum to >= 1,
+         each at most one per flush. Both are killed at a deadline, which
+         fails the phase; a card in Exclusive_Process mode fails it too.
+         Two processes share one card and eight cores: no multi-host
+         speed-up is measured
+  profile  one --profile run of the all-types BAM on the main path: the
+         body equals the main path's, the torch.profiler trace
+         (work_dir/torch_trace/resolve.json) holds the cover kernel, and
+         its five longest device operations and the device's busy share
+         of the resolve stage are printed
   k1 main-path shapes  the kernel (bare launch, wrapper, plain version,
          equal) at the window and read counts of each main path's last
-         launch
+         launch, each process of the distributed runs included
 
 Each main-path run sets the launch counts to 0 just before it and reads
 them just after; the streaming runs print their early programs and
@@ -62,13 +80,17 @@ under build/ beside this script.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+import queue
 import re
+import socket
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -103,6 +125,14 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def compute_mode() -> str:
+    """The card's compute mode (Default, Exclusive_Process, ...)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
 
 
 def codec_line() -> str:
@@ -254,8 +284,13 @@ def phase_k1_main(res: dict) -> None:
     spans = {"e2e_100mb": int(E2E_MB * 1e6),
              "alltypes": ALLTYPES_MB * 1_000_000}
     spans.update({"cram_%d.%d" % v: spans["alltypes"] for v in CRAM_VERSIONS})
+    for tag, corpus, _ in DIST_RUNS:
+        for k in range(2):
+            spans["distributed_%s_%d" % (tag, k)] = spans[corpus]
     res["k1"]["main_path"] = {}
     for path, (n_sv, n_reads) in res["main_shapes"].items():
+        if n_sv == 0:
+            continue  # a distributed process whose bucket launched nothing
         rng = np.random.default_rng(4)
         tens = scaled_tensors(random_windows(rng, n_sv, spans[path]),
                               *random_reads(rng, n_reads, spans[path]),
@@ -854,6 +889,233 @@ def phase_forcecall(res: dict) -> None:
     log("forcecall: the all-types BAM and CRAM 3.0 bodies are equal")
 
 
+# the 2-process runs: (tag, corpus, input); the BAMs take the ranged
+# streaming decode, the CRAM the container-aligned plain ranged decode
+DIST_RUNS = (("e2e_100mb_bam", "e2e_100mb", "bam"),
+             ("alltypes_bam", "alltypes", "bam"),
+             ("alltypes_cram_3.0", "alltypes", "cram_3.0"))
+GENOME_BP = {"e2e_100mb": int(E2E_MB * 1e6), "alltypes": ALLTYPES_GENOME_BP}
+DIST_DEADLINE_S = 300
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_child(rank: int, argv: list, results) -> None:
+    """One process of a --distributed run, in a spawned child: the launch
+    count is set to 0 just before the CLI entry point and sent back with
+    the run's stats (or the traceback, before the child exits non-zero)."""
+    from cutesv_tpu_torch import cli
+    from cutesv_tpu_torch.ops import cover
+
+    try:
+        cover.LAUNCHES = 0
+        cover.LAST_SHAPE = (0, 0)
+        t0 = time.time()
+        stats = cli.run(argv)
+        torch.cuda.synchronize()
+        results.put((rank, "ok", dict(stats, launches=cover.LAUNCHES,
+                                      shape=list(cover.LAST_SHAPE),
+                                      wall_s=time.time() - t0)))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _two_processes(tag: str, argvs: list) -> list:
+    """Runs argvs[k] + the distributed flags as process k of 2, each a
+    spawned child (the parent holds a CUDA context, so no fork); returns
+    both stats. Fails if a child reports an error, exits non-zero or
+    without a result, or misses the deadline (both are then killed)."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    flags = ["--distributed", "--coordinator", "localhost:%d" % _free_port(),
+             "--num_processes", "2"]
+    procs = [ctx.Process(target=_dist_child,
+                         args=(k, argvs[k] + flags + ["--process_id", str(k)],
+                               results))
+             for k in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.time() + DIST_DEADLINE_S
+    try:
+        while len(got) < 2:
+            try:
+                rank, status, payload = results.get(timeout=5)
+                got[rank] = (status, payload)
+                continue
+            except queue.Empty:
+                pass
+            silent = [k for k, p in enumerate(procs)
+                      if k not in got and p.exitcode is not None]
+            if silent:
+                raise AssertionError(
+                    "distributed %s: process(es) %s exited (codes %s) "
+                    "without a result" % (tag, silent,
+                                          [procs[k].exitcode for k in silent]))
+            if time.time() > deadline:
+                raise AssertionError(
+                    "distributed %s: no result from process(es) %s within "
+                    "%d s" % (tag, [k for k in range(2) if k not in got],
+                              DIST_DEADLINE_S))
+        for p in procs:
+            p.join(timeout=max(5.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = ["process %d:\n%s" % (k, got[k][1]) for k in sorted(got)
+              if got[k][0] != "ok"]
+    if errors:
+        raise AssertionError("distributed %s failed:\n%s"
+                             % (tag, "\n".join(errors)))
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError("distributed %s: exit codes %s" % (tag, codes))
+    return [got[0][1], got[1][1]]
+
+
+def phase_distributed(res: dict, mode: str) -> None:
+    """--distributed as two processes on the one card, over three inputs;
+    each process's body, decode and launches are held to the main path's
+    (see the module docstring)."""
+    if "exclusive" in mode.lower():
+        raise AssertionError(
+            "compute mode %s: a second process cannot open the card, so "
+            "the two-process run cannot run here" % mode)
+    res["distributed"] = {}
+    for tag, name, kind in DIST_RUNS:
+        corpus = res["corpora"][name]
+        paths = [_fresh("distributed_%s" % tag, "rank%d" % k)
+                 for k in range(2)]
+        t0 = time.time()
+        stats = _two_processes(tag, [
+            [corpus[kind], corpus["fa"], out, wd, "--genotype", "-s", "5",
+             "--device", "cuda"] for out, wd in paths])
+        wall = time.time() - t0
+        streaming = kind == "bam"
+        for k, st in enumerate(stats):
+            if not st.get("sharded") or st.get("streaming") != streaming:
+                raise AssertionError(
+                    "distributed %s process %d: sharded=%s streaming=%s "
+                    "(expected the %s ranged decode)"
+                    % (tag, k, st.get("sharded"), st.get("streaming"),
+                       "streaming" if streaming else "plain"))
+        if os.path.exists(paths[1][0]):
+            raise AssertionError("distributed %s: process 1 wrote a VCF"
+                                 % tag)
+        if _body(paths[0][0]) != _body(corpus["vcf"]):
+            raise AssertionError("distributed %s: process 0's VCF body "
+                                 "differs from the main path's" % tag)
+        flushes = -(-GENOME_BP[name] // FLUSH_BP)
+        launches = [st["launches"] for st in stats]
+        if sum(launches) < 1 or max(launches) > flushes:
+            raise AssertionError(
+                "distributed %s: cover launches %s (the sum must be >= 1, "
+                "each <= %d)" % (tag, launches, flushes))
+        for k, st in enumerate(stats):
+            early = ""
+            if streaming:
+                early = ("; %d early programs + %d full tails validated of "
+                         "%d dispatched, overlap work %.3f s"
+                         % (st["early_kernels"], st["early_tails"],
+                            st["early_dispatched"], st["overlap_work_s"]))
+            log("distributed %s process %d: shard of %d records (walk %.3f "
+                "s, inflate %.3f core-s); decode %.3f s, resolve %.4f s, "
+                "emit %.4f s, wall %.2f s; decode allgather %.2f MB local / "
+                "%.2f MB total in %.3f s, results allgather %.4f MB / %.4f "
+                "MB in %.3f s%s; resolved %s; cover launches %d, last at %s; "
+                "%d calls"
+                % (tag, k, st["shard_records"], st["walk_s"],
+                   st["inflate_core_s"], st["decode_s"], st["resolve_s"],
+                   st["emit_s"], st["wall_s"], st["allgather_mb"],
+                   st["allgather_total_mb"], st["allgather_s"],
+                   st["gather_mb"], st["gather_total_mb"], st["gather_s"],
+                   early, ",".join(st["chroms_resolved"]), st["launches"],
+                   st["shape"], st["n_calls"]))
+            res["main_shapes"]["distributed_%s_%d" % (tag, k)] = st["shape"]
+        log("distributed %s: both processes exit 0, process 1 wrote no VCF, "
+            "process 0's body equals the main path's; launches %s; %.1f s "
+            "with the two processes' start" % (tag, launches, wall))
+        res["launches_by_path"]["distributed_" + tag] = sum(launches)
+        res["distributed"][tag] = [
+            {k: st[k] for k in STAT_KEYS + DIST_KEYS if k in st}
+            for st in stats]
+
+
+DIST_KEYS = ("shard_records", "allgather_mb", "allgather_total_mb",
+             "allgather_s", "gather_mb", "gather_total_mb", "gather_s",
+             "chroms_resolved", "wall_s")
+# the device operations of a chrome trace, by event category
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_ms(events) -> float:
+    """Length of the union of the events' [ts, ts + dur) intervals (the
+    trace's microseconds), in ms."""
+    busy, end = 0.0, None
+    for ts, dur in sorted((float(e["ts"]), float(e["dur"])) for e in events):
+        if end is None or ts > end:
+            busy += dur
+            end = ts + dur
+        elif ts + dur > end:
+            busy += ts + dur - end
+            end = ts + dur
+    return busy / 1e3
+
+
+def phase_profile(res: dict) -> None:
+    """--profile on the all-types main path: the body is the main path's
+    and the trace holds the cover kernel; prints its five longest device
+    operations and the device's busy share of the resolve stage."""
+    corpus = res["corpora"]["alltypes"]
+    out, wd = _fresh("profile", "alltypes")
+    stats = _drive("profile alltypes native_cuda",
+                   [corpus["bam"], corpus["fa"], out, wd, "--genotype", "-s",
+                    "5", "--decoder", "native", "--profile"], "cuda", {})
+    if _body(out) != _body(corpus["vcf"]):
+        raise AssertionError("profile: the VCF body differs from the main "
+                             "path's")
+    _check_main("profile alltypes", stats, ALLTYPES_GENOME_BP)
+    trace = stats["profile_trace"]
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in DEVICE_CATS and "dur" in e]
+    cover_events = [e for e in device if e["cat"] == "kernel"
+                    and "cover_count" in e.get("name", "")]
+    if not cover_events:
+        raise AssertionError(
+            "profile: no cover kernel in %s (device operations: %s)"
+            % (trace, sorted({e.get("name") for e in device})))
+    by_name: dict = {}
+    for e in device:
+        tot = by_name.setdefault(e["name"], [0, 0.0])
+        tot[0] += 1
+        tot[1] += float(e["dur"]) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    busy = _busy_ms(device)
+    resolve_ms = stats["resolve_s"] * 1e3
+    log("profile alltypes: trace %s, %d events, %d device operations (%d "
+        "of the cover kernel); device busy %.3f ms of the resolve stage's "
+        "%.3f ms (%.2f%%)" % (os.path.relpath(trace, REPO), len(events),
+                              len(device), len(cover_events), busy,
+                              resolve_ms, 100 * busy / resolve_ms))
+    for name, (count, ms) in top:
+        log("profile top device operation: %.4f ms in %d call(s): %s"
+            % (ms, count, name[:140]))
+    res["launches_by_path"]["profile_alltypes"] = stats["launches"]
+    res["profile"] = dict(
+        resolve_s=stats["resolve_s"], device_busy_ms=busy,
+        device_ops=len(device), cover_kernel_events=len(cover_events),
+        top=[dict(name=n[:140], count=c, ms=ms) for n, (c, ms) in top])
+
+
 def phase_build() -> None:
     """Both native libraries, built at the same time."""
     from cutesv_tpu_torch.io import native
@@ -892,6 +1154,8 @@ def main() -> int:
 
     card = card_line()
     log("card: %s" % card)
+    mode = compute_mode()
+    log("compute mode: %s" % mode)
     log("host: %d usable cores (sched_getaffinity), %d in all"
         % (len(os.sched_getaffinity(0)), os.cpu_count()))
     log("codecs: %s" % codec_line())
@@ -905,6 +1169,8 @@ def main() -> int:
     phase_alltypes(res)
     phase_cram(res)
     phase_forcecall(res)
+    phase_distributed(res, mode)
+    phase_profile(res)
     phase_k1_main(res)
     # every phase passed (each raises otherwise), so the kernel is equal;
     # ``launches`` is the all-types main path's count (this port's default
@@ -921,7 +1187,8 @@ def main() -> int:
         "pair_cluster_ms": res["pair_cluster_ms"], "e2e": res["e2e"],
         "alltypes": res["alltypes"],
         "alltypes_recall": res["alltypes_recall"], "cram": res["cram"],
-        "forcecall": res["forcecall"]}))
+        "forcecall": res["forcecall"], "distributed": res["distributed"],
+        "profile": res["profile"]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

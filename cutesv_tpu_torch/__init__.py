@@ -13,6 +13,7 @@ Package layout:
                cover-count kernel wrapper and its plain version)
     csrc/      CUDA C++ kernel sources, built with nvcc at first use
     models/    per-SV-type resolvers (host oracle; DEL/INS device engine)
+    parallel/  multi-process runs (--distributed) over torch.distributed
     utils/     device selection
     tools/     corpus simulator
 """

@@ -145,16 +145,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Resume from a signature checkpoint in work_dir "
                         "(skips BAM decode).")
     g.add_argument("--profile", action="store_true",
-                   help="Profile the clustering stage (not ported yet).")
+                   help="Trace the clustering stage with torch.profiler "
+                        "into work_dir/torch_trace/resolve.json.")
     g.add_argument("--distributed", action="store_true",
-                   help="Multi-host run (not ported yet).")
+                   help="Multi-host run over torch.distributed (gloo): "
+                        "sharded decode, per-process chromosome buckets, "
+                        "process 0 writes the VCF.")
     g.add_argument("--coordinator", type=str, default=d.coordinator,
-                   help="Coordinator address host:port of a distributed "
-                        "run.")
+                   help="Rendezvous address host:port of a distributed "
+                        "run (the process group's tcp://host:port); "
+                        "default: MASTER_ADDR and MASTER_PORT (env://).")
     g.add_argument("--num_processes", type=int, default=d.num_processes,
-                   help="Number of processes in the distributed run.")
+                   help="Number of processes in the distributed run "
+                        "(default: WORLD_SIZE).")
     g.add_argument("--process_id", type=int, default=d.process_id,
-                   help="This process's index in the distributed run.")
+                   help="This process's rank in the distributed run "
+                        "(default: RANK).")
     g.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="Device of the device engine; cuda raises when no "

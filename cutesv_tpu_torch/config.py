@@ -67,11 +67,11 @@ class Config:
     decoder: str = "auto"      # "native" (C++), "python", "auto"
     n_shards: int = 1          # device-mesh width for the genome axis
     resume: bool = False       # resume from work_dir/sigstore.pickle
-    profile: bool = False      # profile the resolve stage (not ported yet)
-    distributed: bool = False  # multi-host run (not ported yet)
-    coordinator: str = None    # coordinator address host:port (or auto)
-    num_processes: int = None  # processes in the pod-slice run (or auto)
-    process_id: int = None     # this process's index (or auto)
+    profile: bool = False      # torch.profiler trace of the resolve stage
+    distributed: bool = False  # multi-host run over torch.distributed
+    coordinator: str = None    # rendezvous host:port (or MASTER_ADDR/PORT)
+    num_processes: int = None  # processes in the run (or WORLD_SIZE)
+    process_id: int = None     # this process's rank (or RANK)
 
 
 # Platform presets, from the reference's documented suggestions

@@ -685,14 +685,11 @@ def run_force_calling(cfg, argv, device=None) -> dict:
     """Force-call ``cfg.Ivcf`` against ``cfg.input`` and write the VCF;
     the decode runs on ``device`` (CUDA unless the caller asks for the
     CPU). Returns the site count, ``decoder`` and the decode, call and
-    emit seconds. ``--distributed`` raises: the JAX package's force
-    calling decodes through its multi-host path there, which the port
-    does not have yet."""
+    emit seconds. Under ``--distributed`` each process makes the same
+    whole-file force call, as in the JAX package: no process group is
+    joined, so the decode is plain and unsharded."""
     from cutesv_tpu_torch.io.fasta import FastaFile
-    from cutesv_tpu_torch.pipeline import _not_ported
 
-    if cfg.distributed:
-        raise _not_ported("--distributed", 12)
     if not os.path.isfile(cfg.Ivcf):
         raise FileNotFoundError("[Errno 2] No such file: '%s'" % cfg.Ivcf)
     if not os.path.isfile(cfg.reference):

@@ -179,11 +179,19 @@ def scan_block_table(path: str):
     and uncompressed size. This is the shared, communication-free basis
     for sharded decode: every process scans the same file and derives
     identical block-aligned byte ranges (the BGZF BSIZE chain is
-    deterministic). This is the python scanner, which owns the designed
-    malformed-input errors; the port has no native scanner yet.
+    deterministic). The C++ decoder's mmap scanner
+    (``io/native.py::scan_bgzf_native``) handles regular files; it
+    returns None for a non-regular file or malformed input, which the
+    Python loop below then scans: the loop owns the designed
+    malformed-input errors. A decoder that fails to build raises.
     """
     import numpy as np
 
+    from cutesv_tpu_torch.io.native import scan_bgzf_native
+
+    got = scan_bgzf_native(path)
+    if got is not None:
+        return got
     offs: list = []
     isizes: list = []
     with open(path, "rb") as fh:

@@ -4,7 +4,9 @@
 with its reference FASTA (the CRAM front end of ``cramdecode.inc``), and
 returns the same logical content as the Python decoder's signature
 extraction, as numpy SoA arrays; :class:`StreamingDecode` runs it on a
-native thread and snapshots completed chromosomes while it runs;
+native thread and snapshots completed chromosomes while it runs; both
+take the ``byte_range`` of a sharded (``--distributed``) decode;
+:func:`scan_bgzf_native` lists a BAM's BGZF blocks for the shard plan;
 :func:`block_decode` decodes one CRAM block. The library is built with
 ``g++`` at first use (``ops/build.py::decoder_library``); a failed build
 or load raises, and nothing here falls back to the Python reader.
@@ -57,6 +59,9 @@ def get_lib() -> ctypes.CDLL:
     lib.bamdecode_poll.argtypes = [vp]
     lib.bamdecode_n_refs.restype = ctypes.c_int32
     lib.bamdecode_n_refs.argtypes = [vp]
+    lib.bamdecode_range_refids.restype = None
+    lib.bamdecode_range_refids.argtypes = [
+        vp, ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
     lib.bamdecode_join.restype = ctypes.c_int
     lib.bamdecode_join.argtypes = [vp]
     lib.bamdecode_snapshot.restype = i64
@@ -74,8 +79,36 @@ def get_lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_char_p, i64, i64, ctypes.POINTER(i64),
         ctypes.POINTER(ctypes.c_char_p)]
     lib.bamdecode_block_free.argtypes = [vp]
+    # BGZF block table (scan_bgzf_native)
+    lib.bamdecode_scan_bgzf.restype = ctypes.c_int
+    lib.bamdecode_scan_bgzf.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.POINTER(i64)),
+        ctypes.POINTER(ctypes.POINTER(i64)), ctypes.POINTER(i64)]
+    lib.bamdecode_scan_free.argtypes = [ctypes.POINTER(i64)]
     _lib = lib
     return lib
+
+
+def scan_bgzf_native(path: str):
+    """The C++ decoder's BGZF block-table scan (mmap): (offsets, isizes)
+    int64 arrays, or None for a non-regular file or malformed input,
+    whose designed error the Python scanner
+    (``io/bgzf.py::scan_block_table``) owns."""
+    lib = get_lib()
+    offs = ctypes.POINTER(ctypes.c_int64)()
+    isz = ctypes.POINTER(ctypes.c_int64)()
+    n = ctypes.c_int64()
+    rc = lib.bamdecode_scan_bgzf(path.encode(), ctypes.byref(offs),
+                                 ctypes.byref(isz), ctypes.byref(n))
+    if rc != 0:
+        return None
+    try:
+        o = np.ctypeslib.as_array(offs, shape=(n.value,)).copy()
+        i = np.ctypeslib.as_array(isz, shape=(n.value,)).copy()
+    finally:
+        lib.bamdecode_scan_free(offs)
+        lib.bamdecode_scan_free(isz)
+    return o, i
 
 
 def block_decode(method: int, data: bytes, raw_size: int) -> bytes:
@@ -126,9 +159,10 @@ class NativeDecode:
     n_records: int
     arrays: Dict[str, np.ndarray]
     ins_seq_blob: bytes
-    # uncompressed offsets of the first record (the header's end) and of
-    # the end of the last record (ranged decodes, whose shards check
-    # these against each other, come with the multi-host port)
+    # uncompressed offsets, relative to the byte range's start, of the
+    # first record boundary and of the first record NOT owned by this
+    # range (== the next shard's first); sharded decodes check them
+    # against each other
     first_u: int = 0
     next_u: int = 0
     # decoder-internal record-walk wall (s)
@@ -194,11 +228,12 @@ class NativeUnsupported(IOError):
     file to the Python reader and reports ``decoder="python"``."""
 
 
-def _call_args(cfg, bed_ids, reference):
+def _call_args(cfg, bed_ids, reference, byte_range=None):
+    rng_start, rng_ulen = byte_range if byte_range else (0, 0)
     params = (ctypes.c_int64 * 11)(
         cfg.min_size, cfg.min_mapq, cfg.max_split_parts, cfg.min_read_len,
         cfg.min_siglength, cfg.merge_del_threshold, cfg.merge_ins_threshold,
-        cfg.max_size, getattr(cfg, "threads", 2), 0, 0)
+        cfg.max_size, getattr(cfg, "threads", 2), rng_start, rng_ulen)
     keepalive = []
     if bed_ids is not None and len(bed_ids[0]):
         bc = np.ascontiguousarray(bed_ids[0], np.int32)
@@ -267,14 +302,21 @@ def _extract(lib, handle, path: str) -> NativeDecode:
                             lib.bamdecode_records_core_seconds(handle)))
 
 
-def decode(path: str, cfg, bed_ids=None, reference=None) -> NativeDecode:
-    """Run the native decoder over the whole file (BAM; CRAM when
-    ``reference`` names the FASTA). ``bed_ids``: optional (chr_id, start,
-    end) int arrays in header chrom-id space (already ±1000-padded).
-    ``cfg.threads`` sets the decode threads."""
+def decode(path: str, cfg, bed_ids=None, reference=None,
+           byte_range=None) -> NativeDecode:
+    """Run the native decoder over the file (BAM; CRAM when ``reference``
+    names the FASTA). ``bed_ids``: optional (chr_id, start, end) int
+    arrays in header chrom-id space (already ±1000-padded).
+    ``cfg.threads`` sets the decode threads. ``byte_range``: optional
+    (compressed_offset, length) of a sharded decode — a BAM decodes the
+    records whose uncompressed start offset relative to the BGZF block
+    at the offset is below the uncompressed length, a CRAM the
+    containers inside the compressed length (0 = unbounded, -1 = none);
+    the result's ``first_u``/``next_u`` are the range's boundary
+    offsets for the cross-shard agreement check."""
     lib = get_lib()
     params, ref_arg, bc_p, bs_p, be_p, n_bed, _ka = _call_args(
-        cfg, bed_ids, reference)
+        cfg, bed_ids, reference, byte_range)
     handle = lib.bamdecode_run(path.encode(), ref_arg, params, bc_p, bs_p,
                                be_p, n_bed)
     try:
@@ -301,12 +343,14 @@ class StreamingDecode:
 
     DONE = 2 ** 31 - 1  # INT32_MAX progress sentinel
 
-    def __init__(self, path: str, cfg, bed_ids=None, reference=None):
-        """``reference``: the FASTA of a CRAM input (None for a BAM)."""
+    def __init__(self, path: str, cfg, bed_ids=None, reference=None,
+                 byte_range=None):
+        """``reference``: the FASTA of a CRAM input (None for a BAM);
+        ``byte_range``: as for :func:`decode`."""
         self._lib = get_lib()
         self._path = path
         params, ref_arg, bc_p, bs_p, be_p, n_bed, ka = _call_args(
-            cfg, bed_ids, reference)
+            cfg, bed_ids, reference, byte_range)
         self._keepalive = ka
         self._handle = self._lib.bamdecode_start(
             path.encode(), ref_arg, params, bc_p, bs_p, be_p, n_bed)
@@ -320,6 +364,16 @@ class StreamingDecode:
         """Header reference count; valid once poll() returned >= 0
         (including DONE)."""
         return int(self._lib.bamdecode_n_refs(self._handle))
+
+    def range_refids(self):
+        """(first, last) refid merged so far (-1 while nothing merged):
+        under a byte range these are the possibly-partial boundary
+        chromosomes, whose census/sig completeness cannot be assumed."""
+        first = ctypes.c_int32()
+        last = ctypes.c_int32()
+        self._lib.bamdecode_range_refids(self._handle, ctypes.byref(first),
+                                         ctypes.byref(last))
+        return int(first.value), int(last.value)
 
     _SNAP_TYPE = {"DEL": 0, "INS": 1, "DUP": 2, "INV": 3, "TRA": 4,
                   "CEN": 5}

@@ -8,9 +8,14 @@ CUDA cover-count kernel per int32-safe flush, TRA windows included) ->
 VCF. On the device engine the native decode streams: each chromosome's
 cluster programs are dispatched as soon as the decoder finishes it, and
 its DEL/INS emission and genotype can run under the remaining decode.
-The slice of ``cutesv_tpu/pipeline.py`` the port carries so far;
-whatever lies outside it raises NotImplementedError naming its
-ROADMAP.md item rather than quietly taking another path.
+Under ``--distributed`` (``parallel/distributed.py``) each process
+decodes its byte range of the input, the partial decodes are exchanged
+and merged, each process resolves its own chromosome bucket on its own
+device, and process 0 gathers the rows and writes the VCF.
+``--profile`` traces the resolve stage with ``torch.profiler``. The
+slice of ``cutesv_tpu/pipeline.py`` the port carries so far; whatever
+lies outside it (``--n_shards > 1``) raises NotImplementedError naming
+its ROADMAP.md item rather than quietly taking another path.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from cutesv_tpu_torch import extract, sigstore, vcf
 from cutesv_tpu_torch.config import Config
@@ -51,10 +57,6 @@ def check_slice(cfg: Config) -> None:
     ``forcecalling.run_force_calling``, as the JAX package's does."""
     if cfg.n_shards > 1:
         raise _not_ported("--n_shards > 1", 11)
-    if cfg.distributed:
-        raise _not_ported("--distributed", 12)
-    if cfg.profile:
-        raise _not_ported("--profile", 13)
 
 
 def load_bed_regions(path: Optional[str]) -> Optional[Dict[str, list]]:
@@ -118,24 +120,31 @@ def _n_cores() -> int:
         return os.cpu_count() or 1
 
 
-def _stream_dispatch_ok(cfg: Config) -> bool:
-    """Streaming decode->dispatch overlap for single-process device-engine
-    runs: cluster programs for completed chromosomes launch while later
-    chromosomes still decode. A CRAM streams as a BAM does (the CRAM
+def _stream_dispatch_ok(cfg: Config, is_cram: bool,
+                        for_distributed: bool = False) -> bool:
+    """Streaming decode->dispatch overlap for device-engine runs: cluster
+    programs for completed chromosomes launch while later chromosomes
+    still decode. A plain run's CRAM streams as a BAM does (the CRAM
     front end feeds the same per-record extraction, so per-chromosome
-    progress and snapshots work unchanged). CUTESV_STREAM_DISPATCH=0
-    forces it off; CUTESV_STREAM_DISPATCH=1 bypasses only the core-count
-    heuristic (the snapshot sort/pad/upload work contends with the
-    inflate pool when there is a single core); the structural gate
-    (device engine, non-distributed, no force calling: it never uses
-    early programs, so its decode runs plain) always applies."""
+    progress and snapshots work unchanged). A multi-process run streams
+    through ``_decode_sharded_streaming``, which calls this gate with
+    ``for_distributed=True``; its ranged decode plans BGZF block ranges,
+    so a CRAM is excluded there only. CUTESV_STREAM_DISPATCH=0 forces it
+    off; CUTESV_STREAM_DISPATCH=1 bypasses only the core-count heuristic
+    (the snapshot sort/pad/upload work contends with the inflate pool
+    when there is a single core); the structural gate (device engine, no
+    force calling: it never uses early programs, so its decode runs
+    plain) always applies."""
     forced = os.environ.get("CUTESV_STREAM_DISPATCH")
     if forced is not None:
         if forced != "1":
             return False
     elif _n_cores() < 2:
         return False
-    return (cfg.engine in ("device", "auto") and not cfg.distributed
+    if for_distributed and is_cram:
+        return False
+    return (cfg.engine in ("device", "auto")
+            and (for_distributed or not cfg.distributed)
             and not cfg.Ivcf)
 
 
@@ -217,14 +226,22 @@ def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
     return (cands, [])
 
 
-def _streaming_poll_loop(sd, cfg: Config, device):
-    """Poll/dispatch loop of the streaming decode: as each chromosome
-    completes, snapshot its rows, sort/dedup them with the store's exact
-    keys and dispatch its cluster programs on ``device`` (plus, where
-    eligible, the full mid-decode DEL/INS tail). Runs until the decode
-    thread reports DONE; the caller joins and validates fingerprints.
-    A failing dispatch or tail raises: there is no fallback to a plain
-    decode.
+def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
+                         allow_done_tail: bool = True):
+    """Poll/dispatch loop of the streaming decode paths: as each
+    chromosome completes, snapshot its rows, sort/dedup them with the
+    store's exact keys and dispatch its cluster programs on ``device``
+    (plus, where eligible, the full mid-decode DEL/INS tail). Runs until
+    the decode thread reports DONE; the caller joins and validates
+    fingerprints. A failing dispatch or tail raises: there is no
+    fallback to a plain decode.
+
+    ``tail_chrom_ok(c)``: extra per-chromosome gate for the FULL tail (a
+    sharded decode excludes its possibly-partial range-start chromosome,
+    whose local census may be missing a prefix another shard owns).
+    ``allow_done_tail``: whether CUTESV_STREAM_TAIL=force may tail the
+    final batch (never under a byte range: the range-end chromosome's
+    census may be cut by the budget).
 
     Returns (handles, fingerprints, early_results, timing), the first
     three keyed (svtype, chrom_id)."""
@@ -240,7 +257,7 @@ def _streaming_poll_loop(sd, cfg: Config, device):
     # _stream_tail_default (n_refs is header-derived and valid only once
     # poll() >= 0, so it resolves lazily below).
     tail_env = os.environ.get("CUTESV_STREAM_TAIL")
-    tail_force = tail_env == "force"
+    tail_force = tail_env == "force" and allow_done_tail
     tail_ok = None
     tail_pref = not cfg.report_readid and tail_env != "0"
     tail_forced_on = tail_env in ("1", "force")
@@ -311,7 +328,8 @@ def _streaming_poll_loop(sd, cfg: Config, device):
             if nk_comp is not None and nk_comp[1] is not None:
                 device_models._start_host_copies(nk_comp[1])
             if (kind == "indel" and tail_ok
-                    and (not finished or tail_force)):
+                    and (not finished or tail_force)
+                    and (tail_chrom_ok is None or tail_chrom_ok(c))):
                 # chromosomes completed before end-of-decode run the
                 # FULL tail here (emission + genotype), under the
                 # remaining decode; the final batch keeps the batched
@@ -404,6 +422,115 @@ def _decode_bam_native_streaming(cfg: Config, bed_ids, device,
     return store, None, references, nd.n_records
 
 
+def _shard_tail_gate(sd, range_start: int):
+    """Full-tail gate for a ranged (sharded) streaming decode: the
+    range-START chromosome may be missing a record prefix the
+    predecessor shard owns, and the count fingerprints only audit
+    signature streams — its local census could silently be short, so it
+    never runs the mid-decode tail. Shard 0 (range_start <= 0) owns the
+    file start, so its first chromosome is complete. (The range-END
+    chromosome is excluded by allow_done_tail=False: it only completes
+    at DONE.)"""
+    def tail_chrom_ok(c):
+        first, _last = sd.range_refids()
+        return range_start <= 0 or c != first
+    return tail_chrom_ok
+
+
+def _sharded_breakdown(records: int, timers, gather: dict, k: int,
+                       n: int) -> dict:
+    """decode_breakdown entries of a sharded decode: this process's shard,
+    its record count and decoder timers (``timers``: a NativeDecode), and
+    the decode allgather."""
+    return dict(decoder="native", sharded=True, shard=k, shards=n,
+                shard_records=records, walk_s=timers.walk_s,
+                inflate_core_s=timers.inflate_core_s,
+                records_core_s=timers.records_core_s,
+                allgather_mb=gather["local_mb"],
+                allgather_total_mb=gather["total_mb"],
+                allgather_s=gather["seconds"])
+
+
+def _decode_sharded_streaming(cfg: Config, bed_ids, device):
+    """--distributed BAM decode WITH the mid-decode overlap: this process
+    inflates only its block-aligned byte range through the streaming
+    decoder, dispatching cluster programs on ``device`` — and, where
+    eligible, full DEL/INS tails — for chromosomes that complete inside
+    the range while later blocks still decode. After the allgather and
+    merge, each fingerprint (raw per-chromosome row count) is validated
+    against the MERGED arrays, so any chromosome another shard
+    contributed rows to (a range boundary cut, or a foreign read's SA
+    tag) discards its early work and is resolved again from the global
+    sort. The local snapshot columns are remapped into the merged
+    name-id / sequence-blob spaces before validation.
+
+    Full tails additionally exclude the range-START chromosome
+    (:func:`_shard_tail_gate`) and the final DONE batch (the range-END
+    chromosome's census can be cut by the uncompressed-length budget).
+
+    Collective discipline: every process runs the decode allgather
+    exactly once. A local failure raises before the exchange (there is
+    no fallback to a plain ranged decode); the failing process's exit
+    closes its gloo sockets, so its peers' allgather raises rather than
+    waits."""
+    from cutesv_tpu_torch.io import native as native_io
+    from cutesv_tpu_torch.parallel import distributed as dist
+
+    native_io.get_lib()  # a failed decoder build raises before the device
+    device = resolve_device(device)
+    n = dist.process_count()
+    k = dist.process_index()
+    ranges = dist.plan_shard_ranges(cfg.input, n)
+    rng = ranges[k][:2]
+    t_n0 = time.time()
+    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, byte_range=rng)
+    try:
+        handles, fingerprints, early_results, poll_timing = \
+            _streaming_poll_loop(sd, cfg, device,
+                                 tail_chrom_ok=_shard_tail_gate(sd, rng[0]),
+                                 allow_done_tail=False)
+        nd_local = sd.join()
+    finally:
+        sd.free()
+    t_n1 = time.time()
+    log.info("sharded decode: shard %d/%d decoded %d records in %.2fs "
+             "(streaming)", k, n, nd_local.n_records, t_n1 - t_n0)
+    gather: dict = {}
+    parts = dist.allgather_obj(nd_local, gather)
+    dist.check_shard_boundaries(ranges,
+                                [(p.first_u, p.next_u) for p in parts])
+    pcc = dist.part_census_counts(parts)
+    nd = dist.merge_partial_decodes(parts)
+    _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
+                             nd.chroms)
+    remap = nd.part_name_remaps[k]
+    blob_base = nd.part_blob_bases[k]
+    early_fp = {}
+    for (t, c), fp in fingerprints.items():
+        fp = dict(fp)
+        if "name_id" in fp:
+            fp["name_id"] = remap[fp["name_id"]]
+        if "seq_off" in fp:
+            fp["seq_off"] = fp["seq_off"] + blob_base
+        early_fp[(t, nd.chroms[c])] = fp
+    store = sigstore.build_store_native(nd, early=early_fp)
+    _attach_early_to_store(store, nd, handles, fingerprints, early_results)
+    store.part_census_counts = pcc
+    store.decode_breakdown = dict(
+        _sharded_breakdown(nd_local.n_records, nd_local, gather, k, n),
+        streaming=True,
+        native_s=t_n1 - t_n0, store_s=time.time() - t_n1,
+        overlap_work_s=poll_timing["overlap_work_s"],
+        done_tail_s=poll_timing["done_tail_s"],
+        tail_windows=poll_timing["tail_windows"],
+        early_dispatched=len(handles) + len(early_results),
+        early_kernels=len(store.early_kernels),
+        early_tails=len(store.early_results))
+    references = [(nd.chroms[i], int(nd.ref_lengths[i]))
+                  for i in range(len(nd.ref_lengths))]
+    return store, None, references, nd.n_records
+
+
 def _decode_bam_native(cfg: Config, device=None, is_cram=False):
     from cutesv_tpu_torch.io import native as native_io
     bed_ids = None
@@ -436,9 +563,34 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
         bed_ids = (np.array(bc, np.int32), np.array(bs, np.int64),
                    np.array(be, np.int64))
     reference = cfg.reference if is_cram else None  # a CRAM's FASTA
-    if _stream_dispatch_ok(cfg):
+    if _stream_dispatch_ok(cfg, is_cram):
         # no fallback: a failing dispatch or tail raises
         return _decode_bam_native_streaming(cfg, bed_ids, device, reference)
+    if cfg.distributed:
+        from cutesv_tpu_torch.parallel import distributed as dist
+        if dist.process_count() > 1:
+            # multi-host: inflate only this process's byte range (BGZF
+            # blocks for BAM, containers for CRAM), then exchange the
+            # (small) signature partials. BAM ranges stream: early
+            # programs/tails for chromosomes completed inside the range
+            # overlap the remaining decode (validated after the merge)
+            if _stream_dispatch_ok(cfg, is_cram, for_distributed=True):
+                return _decode_sharded_streaming(cfg, bed_ids, device)
+            gather: dict = {}
+            nd = dist.decode_sharded(cfg, bed_ids, is_cram=is_cram,
+                                     info=gather)
+            _check_coordinate_sorted(nd.arrays["all_chr"],
+                                     nd.arrays["all_start"], nd.chroms)
+            store = sigstore.build_store_native(nd)
+            store.part_census_counts = nd.part_census_counts
+            store.decode_breakdown = dict(
+                _sharded_breakdown(nd.shard_records, nd, gather,
+                                   dist.process_index(),
+                                   dist.process_count()),
+                streaming=False)
+            references = [(nd.chroms[i], int(nd.ref_lengths[i]))
+                          for i in range(len(nd.ref_lengths))]
+            return store, None, references, nd.n_records
     nd = native_io.decode(cfg.input, cfg, bed_ids, reference=reference)
     _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
                              nd.chroms)
@@ -1190,10 +1342,91 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
     return results
 
 
+def _filter_store_chroms(store: sigstore.SigStore, keep) -> sigstore.SigStore:
+    """Shallow copy of the store with signature streams restricted to the
+    chromosomes ``keep(chrom)`` selects. Census/read tables stay complete:
+    TRA genotyping replays coverage on the mate chromosome too."""
+    out = sigstore.SigStore(
+        sigs={t: {c: v for c, v in per.items() if keep(c)}
+              for t, per in store.sigs.items()},
+        census=store.census, read_tables=store.read_tables,
+        chrom_lengths=store.chrom_lengths, names=store.names)
+    # early programs / full-tail results follow their chromosome's owner
+    # (a dropped chromosome's early work is simply unused on this process)
+    for attr in ("early_kernels", "early_results"):
+        src = getattr(store, attr, None)
+        if src:
+            setattr(out, attr, {(t, c): v for (t, c), v in src.items()
+                                if keep(c)})
+    return out
+
+
+def _bucket_plan(store: sigstore.SigStore, n: int) -> Dict[str, int]:
+    """Chromosome -> process plan of an ``n``-process run, derived from
+    the exchanged decode and the merged store, so identical on every
+    process with no communication: range-affine (each chromosome
+    resolves on the process whose decode range produced most of its
+    census rows, so its mid-decode tails land in that process's own
+    bucket) when the store's part counts come from ``n`` parts, LPT
+    otherwise (a --resume with another --num_processes, or a store with
+    no part counts)."""
+    from cutesv_tpu_torch.parallel.distributed import (
+        assign_chroms_by_decode_range, assign_chroms_lpt)
+
+    pcc = getattr(store, "part_census_counts", None)
+    if pcc and len(pcc) == n:
+        return assign_chroms_by_decode_range(pcc, store, n)
+    return assign_chroms_lpt(store, n)
+
+
+def _gather_results(results: Dict[str, List], info: dict = None):
+    """Multi-host merge: allgather each process's per-chromosome candidate
+    rows onto every process; process 0 returns the merged dict, the
+    others return None and skip the VCF emit (the reference's stage 4 is
+    serial too, cuteSV:1218-1247). ``info`` receives the allgather's
+    sizes and seconds."""
+    from cutesv_tpu_torch.parallel.distributed import (allgather_obj,
+                                                       is_emitter)
+
+    parts = allgather_obj(results, info)
+    if not is_emitter():
+        return None
+    merged: Dict[str, List] = {}
+    for part in parts:
+        for chrom, rows in part.items():
+            merged.setdefault(chrom, []).extend(rows)
+    return merged
+
+
+def _profiled_resolve(store, cfg: Config, device):
+    """resolve_all under torch.profiler (CPU activity, plus CUDA on a
+    CUDA device); the trace goes to ``work_dir/torch_trace/resolve.json``
+    (chrome trace format). Returns (results, trace path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    trace_dir = os.path.join(cfg.work_dir, "torch_trace")
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        results = resolve_all(store, cfg, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = os.path.join(trace_dir, "resolve.json")
+    prof.export_chrome_trace(path)
+    log.info("Profiler trace written to %s" % path)
+    return results, path
+
+
 def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
                  device=None) -> dict:
     """Full discovery run on ``device`` (CUDA unless the caller asks for
-    the CPU); returns stage timing + counters."""
+    the CPU); returns stage timing + counters. Under ``cfg.distributed``
+    the process joins the run's process group first (with more than one
+    process): it resolves only its chromosome bucket, and a process
+    other than 0 returns after the result exchange, with ``n_calls`` 0
+    and no VCF written."""
     argv = argv if argv is not None else []
     device = resolve_device(device)
     check_slice(cfg)
@@ -1217,6 +1450,25 @@ def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
                         "[Errno 2] File exists: '%s' "
                         "(use --resume to reuse, or clean the work dir)"
                         % path)
+    dist_active = False
+    if cfg.distributed:
+        from cutesv_tpu_torch.parallel import distributed as dist
+        dist_active = dist.init_distributed(
+            cfg.coordinator, cfg.num_processes, cfg.process_id)
+    try:
+        return _run_stages(cfg, argv, device, ckpt, dist_active)
+    finally:
+        if dist_active:
+            # gloo's threads must stop before the interpreter exits (a
+            # group left to the exit's destructors can abort the process)
+            dist.shutdown_distributed()
+
+
+def _run_stages(cfg: Config, argv: List[str], device, ckpt: Optional[str],
+                dist_active: bool) -> dict:
+    """Decode, resolve and emit of :func:`run_pipeline`, after its input
+    checks; ``dist_active``: this process is one of a multi-process
+    run's group."""
     stats = {}
     t0 = time.time()
     # open + index the reference FASTA on a side thread: the emitter needs
@@ -1260,8 +1512,35 @@ def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
             else:
                 sigstore.write_old_sigs_native(store, cfg.work_dir)
 
+    if dist_active:
+        # every process decoded the input; this one resolves only its
+        # chromosome bucket, on its own device
+        from cutesv_tpu_torch.parallel.distributed import (process_count,
+                                                           process_index)
+        k = process_index()
+        assign = _bucket_plan(store, process_count())
+        store = _filter_store_chroms(store,
+                                     lambda c: assign.get(c, 0) == k)
+        stats["chroms_resolved"] = sorted(c for c, b in assign.items()
+                                          if b == k)
     t1 = time.time()
-    results = resolve_all(store, cfg, device)
+    if cfg.profile and cfg.work_dir:
+        results, stats["profile_trace"] = _profiled_resolve(store, cfg,
+                                                            device)
+    else:
+        results = resolve_all(store, cfg, device)
+    if dist_active:
+        gather: dict = {}
+        results = _gather_results(results, gather)
+        stats.update(gather_mb=gather["local_mb"],
+                     gather_total_mb=gather["total_mb"],
+                     gather_s=gather["seconds"])
+        if results is None:  # not the emitter: done after the exchange
+            stats["resolve_s"] = time.time() - t1
+            stats["n_calls"] = 0
+            stats["emit_s"] = 0.0
+            stats["total_s"] = time.time() - t0
+            return stats
     stats["resolve_s"] = time.time() - t1
     stats["n_calls"] = sum(len(v) for v in results.values())
 

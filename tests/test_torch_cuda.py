@@ -176,3 +176,34 @@ def test_alltypes_cram_on_cuda_equals_cpu(card, tmp_path, monkeypatch):
         bodies[tag] = [l for l in out.read_text().splitlines()
                        if not l.startswith(("##fileDate", "##CommandLine"))]
     assert bodies["cuda"] == bodies["cpu"] == bodies["bam"]
+
+
+def test_profile_on_cuda_traces_the_cover_kernel(card, tmp_path,
+                                                 monkeypatch):
+    """--profile on the card: the torch.profiler trace of the resolve
+    stage holds the cover kernel's launch, and the body equals the CPU
+    run's."""
+    import json
+
+    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
+    bed = str(tmp_path / "grid.bed")
+    chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
+    info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
+                  coverage=20, seed=1)
+    bodies, traces = {}, {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / ("%s.vcf" % device)
+        cfg = Config(input=info["bam"], reference=info["fa"],
+                     output=str(out), work_dir=str(tmp_path / device),
+                     genotype=True, min_support=5, profile=device == "cuda")
+        traces[device] = run_pipeline(cfg, ["x"],
+                                      device=device).get("profile_trace")
+        bodies[device] = [l for l in out.read_text().splitlines()
+                          if not l.startswith(("##fileDate",
+                                               "##CommandLine"))]
+    assert traces["cpu"] is None
+    with open(traces["cuda"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("cover_count" in k for k in kernels), sorted(set(kernels))
+    assert bodies["cuda"] == bodies["cpu"]

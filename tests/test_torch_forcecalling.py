@@ -213,14 +213,25 @@ def test_cli_ivcf_equals_jax(tmp_path, fixture):
     assert "RNAMES=" in bodies["port", "bam"]
 
 
-def test_ivcf_distributed_raises(tmp_path):
-    bam, fa = build_fc(tmp_path)
-    cfg = TConfig(input=str(bam), reference=str(fa),
-                  output=str(tmp_path / "fc.vcf"), Ivcf=str(bam),
-                  distributed=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfc.run_force_calling(cfg, ["f"], device="cpu")
-    assert not (tmp_path / "fc.vcf").exists()
+def test_ivcf_distributed_equals_jax(tmp_path):
+    """-Ivcf --distributed: as in the JAX package, each process makes the
+    plain whole-file force call (no process group is joined), so process
+    1 of 2 run alone writes the JAX CLI's body."""
+    bam, fa, disc = _discovery(tmp_path, "fc")
+    bodies = {}
+    for pkg in ("jax", "port"):
+        out = tmp_path / ("%s_fc.vcf" % pkg)
+        argv = [str(bam), str(fa), str(out), str(tmp_path / ("wd_" + pkg)),
+                "-Ivcf", str(disc), "--genotype", "--distributed",
+                "--num_processes", "2", "--process_id", "1"]
+        if pkg == "jax":
+            assert jcli.main(argv) == 0
+        else:
+            stats = tcli.run(argv + ["--device", "cpu"])
+            assert stats["decoder"] == "native" and stats["sites"] >= 2
+            assert not torch.distributed.is_initialized()
+        bodies[pkg] = _strip_volatile(out.read_text())
+    assert bodies["port"] == bodies["jax"]
 
 
 def test_cli_ivcf_cuda_without_card_raises(tmp_path):

@@ -183,18 +183,22 @@ def test_default_device_raises_without_cuda(tmp_path):
     assert not (tmp_path / "o.vcf").exists()
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("n_shards", 2, "item 11"),
-    ("distributed", True, "item 12"),
-    ("profile", True, "item 13"),
+@pytest.mark.parametrize("options,item", [
+    pytest.param({"n_shards": 2}, "item 11", id="n_shards-2-item 11"),
+    pytest.param({"distributed": True, "n_shards": 2}, "item 11",
+                 id="distributed-n_shards-2-item 11"),
 ])
-def test_unported_options_raise(tmp_path, option, value, item):
+def test_unported_options_raise(tmp_path, options, item):
+    """--n_shards > 1 raises naming its ROADMAP item, with --distributed
+    too (before any process group is joined)."""
     bam, fa = build_engines_fixture(tmp_path)
     cfg = TConfig(input=str(bam), reference=str(fa),
                   output=str(tmp_path / "o.vcf"), work_dir=str(tmp_path),
-                  **{option: value})
+                  **options)
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_pipeline(cfg, ["x"], device="cpu")
+    assert not torch.distributed.is_initialized()
+    assert not (tmp_path / "o.vcf").exists()
 
 
 def test_cram_input_raises(tmp_path):
@@ -222,6 +226,7 @@ names = [m.name for m in pkgutil.walk_packages(cutesv_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
+assert "cutesv_tpu_torch.parallel.distributed" in names, names
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "jaxlib" or k.startswith("jaxlib.")

@@ -324,9 +324,11 @@ def test_stream_tail_default_and_dispatch_gate_equal_jax(monkeypatch):
                     monkeypatch.setenv("CUTESV_STREAM_DISPATCH", env)
                 monkeypatch.setattr(tpipe, "_n_cores", lambda c=cores: c)
                 monkeypatch.setattr(jpipe, "_n_cores", lambda c=cores: c)
-                assert tpipe._stream_dispatch_ok(TConfig(engine=engine)) \
-                    == jpipe._stream_dispatch_ok(JConfig(engine=engine),
-                                                 False)
+                for is_cram in (False, True):
+                    assert tpipe._stream_dispatch_ok(
+                        TConfig(engine=engine), is_cram) \
+                        == jpipe._stream_dispatch_ok(JConfig(engine=engine),
+                                                     is_cram)
 
 
 @pytest.mark.parametrize("where", ["dispatch", "tail"])
