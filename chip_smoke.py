@@ -61,6 +61,23 @@ result line:
          fails the phase; a card in Exclusive_Process mode fails it too.
          Two processes share one card and eight cores: no multi-host
          speed-up is measured
+  shards  --n_shards on the one card, over the device list [cuda:0] * 2
+         (two shards' programs and two cover launches per flush, both on
+         cuda:0): sharded_cluster_sizes against the same call on
+         [cpu] * 2; the DEL/INS and pair programs (DUP, INV, TRA forms) on
+         two gap-aligned shards of 2**22 rows against one serial call; the
+         sharded cover at the genome-scale shape against one launch and
+         the plain version (both times printed); run_pipeline with
+         --n_shards 2 over both corpora (bodies equal to the main path's,
+         the stats name both devices, 2 to 2 x flushes cover launches);
+         the CLI with --n_shards 2 on the machine's own cards (one card:
+         the serial programs run and the log says so; two or more: a real
+         sharded run; the body equal either way); entry() on the card
+         against the CPU; dryrun_multichip(2, [cuda:0] * 2) and its DRYRUN
+         OK line; the BND-storm bench (cutesv_tpu_torch/tools/bench_tra.py,
+         50,000 signatures over a 400,000-row census: three equal arms,
+         three times); one scale_run of the 100 Mb corpus in a fresh
+         process (its SCALE_RUN line; the main path's call count)
   profile  one --profile run of the all-types BAM on the main path: the
          body equals the main path's, the torch.profiler trace
          (work_dir/torch_trace/resolve.json) holds the cover kernel, and
@@ -80,6 +97,7 @@ under build/ beside this script.
 from __future__ import annotations
 
 import json
+import logging
 import multiprocessing
 import os
 import queue
@@ -287,6 +305,8 @@ def phase_k1_main(res: dict) -> None:
     for tag, corpus, _ in DIST_RUNS:
         for k in range(2):
             spans["distributed_%s_%d" % (tag, k)] = spans[corpus]
+    for tag, corpus in SHARD_RUNS:
+        spans["shards_" + tag] = spans[corpus]
     res["k1"]["main_path"] = {}
     for path, (n_sv, n_reads) in res["main_shapes"].items():
         if n_sv == 0:
@@ -572,19 +592,32 @@ ALLTYPES_GENOME_BP = ALLTYPES_MB * 1_000_000 + 2 * 500_000
 FLUSH_BP = 1_000_000_000  # pipeline._FLUSH_BP: one cover launch at most
 
 
-def _drive(tag: str, argv: list, device: str, env: dict) -> dict:
+def _drive(tag: str, argv: list, device: str, env: dict,
+           shard_devices=None) -> dict:
     """One CLI run with the launch counts set to 0 just before it and
-    read just after; ``env`` is set for the run only."""
-    from cutesv_tpu_torch import cli
+    read just after; ``env`` is set for the run only. With
+    ``shard_devices`` the parsed arguments go to ``run_pipeline`` with
+    that shard device list (the CLI has no flag for it)."""
+    from cutesv_tpu_torch import cli, pipeline
     from cutesv_tpu_torch.ops import cover
 
+    argv = argv + ["--device", device]
+    cfg = None
+    if shard_devices is not None:
+        parser = cli.build_parser()
+        cfg = cli.args_to_config(parser.parse_args(argv),
+                                 explicit=cli._explicit_dests(parser, argv))
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
         cover.LAUNCHES = 0
         cover.LAST_SHAPE = (0, 0)
         t1 = time.time()
-        stats = cli.run(argv + ["--device", device])
+        if cfg is None:
+            stats = cli.run(argv)
+        else:
+            stats = pipeline.run_pipeline(cfg, argv, device=device,
+                                          shard_devices=shard_devices)
         if device == "cuda":
             torch.cuda.synchronize()
         stats = dict(stats, launches=cover.LAUNCHES,
@@ -1048,6 +1081,268 @@ def phase_distributed(res: dict, mode: str) -> None:
             for st in stats]
 
 
+# the --n_shards runs over [cuda:0] * 2: (tag, corpus); the 100 Mb BAM
+# streams (early programs stay single-device, the rest shards), the
+# all-types BAM too
+SHARD_RUNS = (("e2e_100mb", "e2e_100mb"), ("alltypes", "alltypes"))
+BENCH_TRA_SIZE = (50_000, 400_000)   # the root tool's default storm
+
+
+def _wall(fn, reps: int) -> tuple:
+    """Median host-clock ms of ``reps`` runs of ``fn`` (each ends in a
+    synchronize or a host copy), after one warm-up; and the last result."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _shard_programs(res: dict, two: list) -> None:
+    """sharded_cluster_sizes on [cuda:0] * 2 against [cpu] * 2; the DEL/INS
+    and pair programs on two gap-aligned shards of 2**22 rows against one
+    serial call on the card."""
+    from cutesv_tpu_torch.models import device as dm
+    from cutesv_tpu_torch.parallel import mesh as pmesh
+
+    cuda = torch.device("cuda")
+    out = res["shards"]
+    rows = CLUSTER_ROWS // 2
+    pos, valid = (t.numpy() for t in pmesh.demo_inputs(
+        2, rows_per_shard=rows, device="cpu")[:2])
+    want = pmesh.sharded_cluster_sizes([torch.device("cpu")] * 2, 200)(
+        pos, valid)
+    ms, got = _wall(lambda: pmesh.sharded_cluster_sizes(two, 200)(
+        pos, valid), 3)
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and got[2] == want[2]):
+        raise AssertionError("sharded_cluster_sizes on [cuda:0] * 2 != "
+                             "[cpu] * 2")
+    log("shards cluster sizes: %d rows in 2 shards, %d clusters: %.3f ms on "
+        "[cuda:0] * 2 (host clock, with the copies), equal to [cpu] * 2"
+        % (2 * rows, got[2], ms))
+    out["cluster_sizes_ms"] = ms
+
+    n_valid = CLUSTER_ROWS - 12_345
+    rng = np.random.default_rng(2)
+    stream = dm.IndelStream.from_arrays(*synthetic_del_stream(rng, n_valid),
+                                        names_table=None)
+    if dm._gap_cuts(stream.pos, 2, 200) is None:
+        raise AssertionError("the synthetic DEL stream has no gap cut")
+    s_ms, serial = _wall(lambda: dm._cluster_stream(stream, 5, 200, cuda), 3)
+    h_ms, sharded = _wall(lambda: dm._cluster_stream_sharded(
+        stream, 5, 200, two, cuda), 3)
+    dense = np.cumsum(np.diff(sharded[0], prepend=sharded[0][0]) != 0)
+    if not (np.array_equal(dense, serial[0]) and all(
+            np.array_equal(a, b) for a, b in zip(sharded[1:], serial[1:]))):
+        raise AssertionError("sharded DEL/INS program != the serial one")
+    log("shards cluster program: %d rows (%d kept), 2 shards on [cuda:0] * "
+        "2 %.3f ms, one serial call %.3f ms (host clock, rows fetched), "
+        "equal" % (n_valid, len(serial[0]), h_ms, s_ms))
+    out["cluster_ms"] = dict(sharded=h_ms, serial=s_ms)
+    out["pair_ms"] = {}
+    for name, break_on_k2, tra_aux in (("dup", False, False),
+                                       ("inv", True, False),
+                                       ("tra", False, True)):
+        rows_ = synthetic_pair_rows(np.random.default_rng(6), n_valid,
+                                    tra_aux)
+        s_ms, serial = _wall(lambda: dm._pair_cluster_slices(
+            *rows_, 5, 150, break_on_k2, cuda), 1)
+        h_ms, sharded = _wall(lambda: dm._pair_cluster_slices_sharded(
+            *rows_, 5, 150, break_on_k2, two, cuda), 1)
+        if len(sharded) != len(serial) or not all(
+                np.array_equal(a, b) for a, b in zip(sharded, serial)):
+            raise AssertionError("sharded pair program (%s) != the serial "
+                                 "one" % name)
+        log("shards pair program (%s): %d rows, %d clusters kept, 2 shards "
+            "on [cuda:0] * 2 %.3f ms, one serial call %.3f ms (host clock, "
+            "slices fetched), equal" % (name, n_valid, len(serial), h_ms,
+                                        s_ms))
+        out["pair_ms"][name] = dict(sharded=h_ms, serial=s_ms)
+
+
+def _shard_cover(res: dict, two: list) -> None:
+    """The sharded cover at the genome-scale shape: two window slices, one
+    launch each, against one launch and the plain version."""
+    from cutesv_tpu_torch.ops import cover
+    from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
+    from cutesv_tpu_torch.parallel import mesh as pmesh
+    from cutesv_tpu_torch.parallel.sharded_cover import make_sharded_cover
+
+    rng = np.random.default_rng(1)
+    span = 1_000_000_000 // 2 - 1
+    wins = random_windows(rng, K1_WINDOWS, span)
+    st, en = random_reads(rng, K1_READS, span)
+    tens = scaled_tensors(wins, st, en, torch.device("cuda"))
+    count = pmesh.sharded_cover_counts(two)
+    before = cover.LAUNCHES
+    sh_ms, got = _wall(lambda: count(*tens), 5)
+    per_call = (cover.LAUNCHES - before) // 6
+    one_ms, one = _wall(lambda: cover.cover_tensors(*tens).cpu().numpy(), 5)
+    plain = cover_plain(*tens).cpu().numpy()
+    if per_call != 2 or not (np.array_equal(got, plain)
+                             and np.array_equal(one, plain)):
+        raise AssertionError("sharded cover: %d launches per call, or != "
+                             "one launch / plain" % per_call)
+    wrapped = make_sharded_cover(2, two)(wins, st, en)
+    if not np.array_equal(wrapped, plain.astype(np.int64)):
+        raise AssertionError("make_sharded_cover != plain")
+    log("shards cover: %d windows x %d reads, 2 slices on [cuda:0] * 2 "
+        "(%d launches) %.3f ms, one launch %.3f ms (host clock, counts "
+        "copied back), equal to the plain version"
+        % (K1_WINDOWS, K1_READS, per_call, sh_ms, one_ms))
+    res["shards"]["cover_ms"] = dict(sharded=sh_ms, one_launch=one_ms)
+
+
+def _shard_main_paths(res: dict, two: list) -> None:
+    """The main paths of both corpora with --n_shards 2 over [cuda:0] * 2:
+    each body equals the corpus's main-path body, the stats name both
+    devices, and the cover kernel launched once per slice and flush."""
+    for tag, name in SHARD_RUNS:
+        corpus = res["corpora"][name]
+        out, wd = _fresh("shards", tag)
+        stats = _drive("shards %s n_shards=2" % tag,
+                       [corpus["bam"], corpus["fa"], out, wd, "--genotype",
+                        "-s", "5", "--n_shards", "2"], "cuda", {},
+                       shard_devices=two)
+        if _body(out) != _body(corpus["vcf"]):
+            raise AssertionError("shards %s: the --n_shards 2 body differs "
+                                 "from the main path's" % tag)
+        if stats["shard_devices"] != ["cuda:0", "cuda:0"]:
+            raise AssertionError("shards %s ran on %s" % (
+                tag, stats["shard_devices"]))
+        flushes = -(-GENOME_BP[name] // FLUSH_BP)
+        if not 2 <= stats["launches"] <= 2 * flushes:
+            raise AssertionError(
+                "shards %s launched the cover kernel %d times (allowed 2 to "
+                "%d: one per slice and flush)" % (tag, stats["launches"],
+                                                  2 * flushes))
+        log("shards %s: body equals the main path's; shard devices %s"
+            % (tag, stats["shard_devices"]))
+        res["launches_by_path"]["shards_" + tag] = stats["launches"]
+        res["main_shapes"]["shards_" + tag] = stats["shape"]
+        res["shards"][tag] = {k: stats[k] for k in STAT_KEYS if k in stats}
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _shard_cli(res: dict) -> None:
+    """--n_shards 2 through the CLI on this machine's own cards: one card
+    runs the serial programs and the log says so; two or more shard."""
+    corpus = res["corpora"]["alltypes"]
+    out, wd = _fresh("shards", "cli")
+    records = _Records()
+    logger = logging.getLogger("cutesv_tpu_torch")
+    logger.addHandler(records)
+    try:
+        stats = _drive("shards cli n_shards=2", [
+            corpus["bam"], corpus["fa"], out, wd, "--genotype", "-s", "5",
+            "--n_shards", "2"], "cuda", {})
+    finally:
+        logger.removeHandler(records)
+    if _body(out) != _body(corpus["vcf"]):
+        raise AssertionError("shards cli: the body differs from the main "
+                             "path's")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        said = [m for m in records.messages if "serial programs run" in m]
+        if stats["shard_devices"] != [] or not said:
+            raise AssertionError("shards cli on one card: shard devices %s, "
+                                 "log %s" % (stats["shard_devices"], said))
+    else:
+        said = [m for m in records.messages if "sharded over" in m]
+        if stats["shard_devices"] != ["cuda:0", "cuda:1"]:
+            raise AssertionError("shards cli on %d cards ran on %s"
+                                 % (cards, stats["shard_devices"]))
+    log("shards cli on %d card(s): shard devices %s; log: %s; body equal"
+        % (cards, stats["shard_devices"], said[0] if said else "-"))
+    res["shards"]["cli"] = dict(cards=cards,
+                                shard_devices=stats["shard_devices"],
+                                launches=stats["launches"])
+
+
+def _shard_entry(res: dict, two: list) -> None:
+    """entry() on the card equals the CPU's; dryrun_multichip(2) over
+    [cuda:0] * 2 prints its DRYRUN OK line."""
+    import contextlib
+    import io
+
+    from cutesv_tpu_torch.entry import dryrun_multichip, entry
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fwd, args = entry(device)
+        outs[device] = {k: v.cpu() for k, v in fwd(*args).items()}
+    for k, v in outs["cpu"].items():
+        if not torch.equal(outs["cuda"][k], v):
+            raise AssertionError("entry() on the card != the CPU: %s" % k)
+    log("shards entry(): %d of %d rows kept, equal on the card and the CPU"
+        % (int(outs["cuda"]["n_kept"]), outs["cuda"]["cid"].shape[0]))
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            dryrun_multichip(2, two)
+    finally:
+        lines = [l for l in buf.getvalue().splitlines()
+                 if l.startswith("DRYRUN")]
+        for line in lines:
+            log("shards dryrun_multichip(2, [cuda:0] * 2): %s" % line)
+    if not (lines and lines[-1].startswith("DRYRUN OK")):
+        raise AssertionError("dryrun_multichip printed no DRYRUN OK line")
+    res["shards"]["dryrun"] = lines[-1]
+
+
+def _shard_tools(res: dict) -> None:
+    """The BND-storm bench on the card (its three arms must be equal) and
+    one scale_run of the 100 Mb corpus in a fresh process."""
+    from cutesv_tpu_torch.tools import bench_tra, scale_run
+
+    t0 = time.time()
+    b = bench_tra.run(*BENCH_TRA_SIZE, device="cuda")
+    log("shards bench_tra: %d sigs, census %d rows, %d candidates, equal in "
+        "the three arms: device (program + batched cover on the card) %.3f "
+        "s, numpy host %.3f s, loop oracle %.3f s; %.1f s with the storm"
+        % (b["n_sigs"], b["census"], len(b["candidates"]), b["device_s"],
+           b["host_s"], b["oracle_s"], time.time() - t0))
+    res["shards"]["bench_tra"] = {k: b[k] for k in (
+        "n_sigs", "census", "device_s", "host_s", "oracle_s")}
+    corpus = res["corpora"]["e2e_100mb"]
+    prefix = corpus["bam"][:-len(".bam")]
+    t0 = time.time()
+    rec, = scale_run.scale_runs(prefix, runs=1, min_support=5,
+                                device="cuda")
+    want = res["e2e"]["native_cuda"]["n_calls"]
+    if rec["n_calls"] != want:
+        raise AssertionError("scale_run: %d calls, the main path %d"
+                             % (rec["n_calls"], want))
+    log("shards scale_run: the record above; %d calls as the main path; "
+        "%.1f s with the child's start" % (rec["n_calls"], time.time() - t0))
+    res["shards"]["scale_run"] = rec
+
+
+def phase_shards(res: dict) -> None:
+    """--n_shards on the card (see the module docstring)."""
+    two = [torch.device("cuda", 0)] * 2
+    res["shards"] = {}
+    _shard_programs(res, two)
+    _shard_cover(res, two)
+    _shard_main_paths(res, two)
+    _shard_cli(res)
+    _shard_entry(res, two)
+    _shard_tools(res)
+
+
 DIST_KEYS = ("shard_records", "allgather_mb", "allgather_total_mb",
              "allgather_s", "gather_mb", "gather_total_mb", "gather_s",
              "chroms_resolved", "wall_s")
@@ -1170,6 +1465,7 @@ def main() -> int:
     phase_cram(res)
     phase_forcecall(res)
     phase_distributed(res, mode)
+    phase_shards(res)
     phase_profile(res)
     phase_k1_main(res)
     # every phase passed (each raises otherwise), so the kernel is equal;
@@ -1188,7 +1484,7 @@ def main() -> int:
         "alltypes": res["alltypes"],
         "alltypes_recall": res["alltypes_recall"], "cram": res["cram"],
         "forcecall": res["forcecall"], "distributed": res["distributed"],
-        "profile": res["profile"]}))
+        "shards": res["shards"], "profile": res["profile"]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

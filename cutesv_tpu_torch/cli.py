@@ -4,7 +4,7 @@ Flag surface mirrors the reference (parseArgs, cuteSV_Description.py:53-263)
 and the cutesv_tpu CLI, plus:
   --preset {clr,ccs,hifi,ont}  expands the documented per-platform values
   --engine {auto,device,host}  select the GPU or oracle clustering engine
-  --device {cuda,cpu}          where the device engine runs (default cuda)
+  --device {cuda,cuda:k,cpu}   where the device engine runs (default cuda)
 
 Run as ``python -m cutesv_tpu_torch.cli in.bam ref.fa out.vcf work_dir``.
 """
@@ -140,7 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "native", "python"],
                    help="BAM decoder implementation.")
     g.add_argument("--n_shards", type=int, default=d.n_shards,
-                   help="Device-mesh width over the genome axis.")
+                   help="Shards of the genome axis, one per card (the "
+                        "serial programs run with fewer cards).")
     g.add_argument("--resume", action="store_true",
                    help="Resume from a signature checkpoint in work_dir "
                         "(skips BAM decode).")
@@ -162,9 +163,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="This process's rank in the distributed run "
                         "(default: RANK).")
     g.add_argument("--device", type=str, default="cuda",
-                   choices=["cuda", "cpu"],
-                   help="Device of the device engine; cuda raises when no "
-                        "GPU is available.[%(default)s]")
+                   help="Device of the device engine: cuda, cuda:k (pins "
+                        "card k) or cpu; cuda raises when no GPU is "
+                        "available.[%(default)s]")
     return p
 
 

@@ -14,8 +14,12 @@ Integer-exactness note: the allele-split threshold is
 f64 summation is exact and equals bincount_sum/count computed here.
 
 Every entry point takes an explicit ``device`` (``resolve_device``: CUDA
-unless the caller asks for the CPU). Outputs are identical to
-models/host.py and to the JAX package's models/device.py.
+unless the caller asks for the CPU). With ``n_shards`` > 1 (the
+``--n_shards`` path) a stream is cut at gaps wider than the bias, so no
+cluster spans two cuts, and each cut runs the unchanged program on its
+own device of the shard list (``parallel/mesh.py::shard_devices``); the
+rows are joined in shard order. Outputs are identical to models/host.py
+and to the JAX package's models/device.py.
 """
 from __future__ import annotations
 
@@ -31,10 +35,13 @@ from cutesv_tpu_torch.models.host import (_equality_codes,
                                           finalize_indel_allele,
                                           inv_cluster_emit)
 from cutesv_tpu_torch.ops.indel_cluster import (compact_cluster_outputs,
-                                                indel_cluster_structure)
+                                                indel_cluster_structure,
+                                                sharded_cluster_structure)
 from cutesv_tpu_torch.ops.pair_cluster import (compact_pair_outputs,
-                                               pair_cluster_structure)
+                                               pair_cluster_structure,
+                                               sharded_pair_cluster)
 from cutesv_tpu_torch.ops.segments import padded_size
+from cutesv_tpu_torch.parallel import mesh as pmesh
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
 
@@ -204,15 +211,18 @@ def _host(pending) -> np.ndarray:
 
 
 def _handles(state) -> list:
-    """The program handles a resolver state holds: the jobs of a DEL/INS
-    multi-state, a raw program output (a streaming dispatch), or the
-    payload of a ``("pending", handle)`` pair state or a
-    ``("pending", handle, arrays)`` TRA state."""
+    """The program handles a resolver state holds: the dispatched jobs of
+    a DEL/INS multi-state, a raw program output (a streaming dispatch),
+    or the payload of a ``("pending", handle)`` pair state or a
+    ``("pending", handle, arrays)`` TRA state. Sharded jobs and ``"done"``
+    states hold none (their programs ran to the end already, or run at
+    the finish)."""
     if state is None:
         return []
     if isinstance(state, dict):
-        return [h for _, _, h in state["jobs"]] if "jobs" in state \
-            else [state]
+        if "jobs" not in state:
+            return [state]
+        return [h for _, _, kind, h in state["jobs"] if kind == "kernel"]
     if isinstance(state, tuple) and len(state) in (2, 3) \
             and state[0] == "pending":
         return [state[1]]
@@ -616,10 +626,86 @@ def _pair_cluster_finish(out):
     return slices
 
 
+def _pair_cluster_slices(k1, k2, aux, keys, read_count, bias, break_on_k2,
+                         device):
+    """Run the pair-cluster program on ``device`` to the end."""
+    return _pair_cluster_finish(_pair_cluster_start(
+        k1, k2, aux, keys, read_count, bias, break_on_k2, device))
+
+
+def _fetch_shards(outs, keys) -> list:
+    """Host copies of each shard output's first ``n_kept`` rows of
+    ``keys``: every n_kept copy starts before any is read, and every row
+    copy before any is read. Returns [(n_kept, {key: numpy})] in shard
+    order."""
+    counts = [_copy_to_host(o["n_kept"]) for o in outs]
+    nks = [int(_host(c)) for c in counts]
+    pending = [{k: _copy_to_host(o[k][:nk]) for k in keys} if nk else {}
+               for o, nk in zip(outs, nks)]
+    return [(nk, {k: _host(v) for k, v in p.items()})
+            for nk, p in zip(nks, pending)]
+
+
+def _shard_bounds(k1, n_shards: int, bias: int):
+    """[0, cuts..., n] of a stream of ``n`` rows and its padded shard
+    size, or None where the JAX package runs the serial program (fewer
+    than 4 rows per shard, or no clean cut)."""
+    n = len(k1)
+    if n < 4 * n_shards:
+        return None
+    cuts = _gap_cuts(np.asarray(k1, np.int64), n_shards, bias)
+    if cuts is None:
+        return None
+    bounds = [0] + cuts + [n]
+    return bounds, padded_size(max(hi - lo for lo, hi in zip(bounds,
+                                                             bounds[1:])))
+
+
+def _pair_cluster_slices_sharded(k1, k2, aux, keys, read_count, bias,
+                                 break_on_k2, devices, device):
+    """Sharded :func:`_pair_cluster_slices`: the program on each k1-gap
+    cut (a k1 gap > bias always opens a cluster, so no cluster spans two
+    shards), shard k on ``devices[k]``. The serial program runs on
+    ``device`` where no clean cut exists."""
+    n = len(k1)
+    if n == 0:
+        return []
+    plan = _shard_bounds(k1, len(devices), bias)
+    if plan is None:
+        return _pair_cluster_slices(k1, k2, aux, keys, read_count, bias,
+                                    break_on_k2, device)
+    bounds, shard_rows = plan
+    # read identities ranked over the whole stream, before the cut
+    _, rid = np.unique(np.asarray(keys), return_inverse=True)
+    cols = [np.asarray(k1), np.asarray(k2), np.asarray(aux), rid]
+    outs = sharded_pair_cluster(
+        [tuple(_upload(c[lo:hi], shard_rows, dev) for c in cols) + (hi - lo,)
+         for dev, lo, hi in zip(devices, bounds, bounds[1:])],
+        bias, read_count, shard_rows, bool(break_on_k2))
+    # shards are stream-order contiguous, so their cluster slices in
+    # shard order are the global program's order
+    slices = []
+    for k, (nk, got) in enumerate(_fetch_shards(outs,
+                                                ("cid", "stream_idx"))):
+        if nk == 0:
+            continue
+        sidx = got["stream_idx"].astype(np.int64) + bounds[k]
+        lo = 0
+        for hi in list(np.flatnonzero(np.diff(got["cid"])) + 1) + [nk]:
+            slices.append(sidx[lo:int(hi)])
+            lo = int(hi)
+    return slices
+
+
 def resolve_pair_start(sigs: Sequence, is_inv: bool, read_count: int,
-                       max_cluster_bias: int, device=None):
+                       max_cluster_bias: int, device=None, n_shards: int = 1,
+                       shard_devices=None):
     """Enqueue the DUP/INV pair-cluster program for one chromosome without
-    fetching. Returns opaque state for :func:`resolve_pair_finish`."""
+    fetching. Returns opaque state for :func:`resolve_pair_finish`. With
+    ``n_shards`` > 1 and a shard device list (``parallel/mesh.py``) the
+    sharded programs run to the end here and the state is ``"done"``."""
+    device = resolve_device(device)
+    devices = pmesh.shard_devices(n_shards, device, shard_devices)
     if is_inv:
         aux = np.fromiter((0 if r[0] == "++" else 1 for r in sigs),
                           np.int64, len(sigs))
@@ -631,15 +717,22 @@ def resolve_pair_start(sigs: Sequence, is_inv: bool, read_count: int,
         k1 = [r[0] for r in sigs]
         k2 = [r[1] for r in sigs]
         keys = [r[2] for r in sigs]
+    if devices is not None:
+        return ("done", _pair_cluster_slices_sharded(
+            k1, k2, aux, keys, read_count, max_cluster_bias, is_inv,
+            devices, device))
     return ("pending", _pair_cluster_start(
-        k1, k2, aux, keys, read_count, max_cluster_bias, is_inv,
-        resolve_device(device)))
+        k1, k2, aux, keys, read_count, max_cluster_bias, is_inv, device))
 
 
 def resolve_pair_compact(state):
     """Read n_kept and enqueue the output compaction of a pending pair
-    state (run before prefetch_to_host so host copies move packed rows)."""
-    return ("pending", _pair_cluster_compact(state[1]))
+    state (run before prefetch_to_host so host copies move packed rows);
+    a ``"done"`` state passes through."""
+    kind, payload = state
+    if kind != "pending":
+        return state
+    return ("pending", _pair_cluster_compact(payload))
 
 
 def resolve_pair_finish(state, sigs: Sequence, is_inv: bool, chrom: str,
@@ -648,7 +741,8 @@ def resolve_pair_finish(state, sigs: Sequence, is_inv: bool, chrom: str,
                         names: Optional[Sequence[str]] = None):
     """Fetch a dispatched pair-cluster program and emit candidates;
     identical outputs to models.host.resolve_dup / resolve_inv."""
-    slices = _pair_cluster_finish(state[1])
+    kind, payload = state
+    slices = payload if kind == "done" else _pair_cluster_finish(payload)
     render = (lambda k: names[k]) if names is not None else (lambda k: k)
     candidates: List[list] = []
     gt_jobs: List[dict] = []
@@ -661,7 +755,8 @@ def resolve_pair_finish(state, sigs: Sequence, is_inv: bool, chrom: str,
 
 
 def resolve_tra_start(sigs: Sequence, read_count: int,
-                      max_cluster_bias: int, device=None):
+                      max_cluster_bias: int, device=None, n_shards: int = 1,
+                      shard_devices=None):
     """Enqueue the TRA/BND cluster program for one chromosome
     (resolution_TRA, cuteSV_resolveTRA.py:30-105, clustering half).
 
@@ -670,19 +765,26 @@ def resolve_tra_start(sigs: Sequence, read_count: int,
     chr2 change, a type change or a pos1 gap, gates on raw size AND
     distinct support, and walks each cluster p2-sorted, which is the
     program's contract. Returns opaque state for
-    :func:`resolve_tra_finish`."""
+    :func:`resolve_tra_finish` (``"done"`` when sharded, as
+    :func:`resolve_pair_start`)."""
     n = len(sigs)
     if n == 0:
         return None
+    device = resolve_device(device)
+    devices = pmesh.shard_devices(n_shards, device, shard_devices)
     ty = np.fromiter((ord(r[0][0]) for r in sigs), np.int64, n)
     p1 = np.fromiter((r[1] for r in sigs), np.int64, n)
     p2 = np.fromiter((r[3] for r in sigs), np.int64, n)
     c2 = _equality_codes([r[2] for r in sigs])
     rid = _equality_codes([r[4] for r in sigs])
     aux = c2 * 4 + (ty - ord("A"))
+    if devices is not None:
+        return ("done", _pair_cluster_slices_sharded(
+            p1, p2, aux, rid, read_count, max_cluster_bias, False, devices,
+            device), (p1, p2, rid))
     return ("pending", _pair_cluster_start(
-        p1, p2, aux, rid, read_count, max_cluster_bias, False,
-        resolve_device(device)), (p1, p2, rid))
+        p1, p2, aux, rid, read_count, max_cluster_bias, False, device),
+        (p1, p2, rid))
 
 
 def resolve_tra_compact(state):
@@ -690,7 +792,9 @@ def resolve_tra_compact(state):
     state (mirror of :func:`resolve_pair_compact`)."""
     if state is None:
         return None
-    _, payload, arrs = state
+    kind, payload, arrs = state
+    if kind != "pending":
+        return state
     return ("pending", _pair_cluster_compact(payload), arrs)
 
 
@@ -706,8 +810,8 @@ def resolve_tra_finish(state, sigs: Sequence, chr_1: str, read_count: int,
     and the jobs are appended there."""
     if state is None:
         return []
-    _, payload, (p1, p2, rid) = state
-    slices = _pair_cluster_finish(payload)
+    kind, payload, (p1, p2, rid) = state
+    slices = payload if kind == "done" else _pair_cluster_finish(payload)
     if not slices:
         return []
     order_rows = np.concatenate(slices)
@@ -722,9 +826,11 @@ def resolve_tra_finish(state, sigs: Sequence, chr_1: str, read_count: int,
 def resolve_tra_device(sigs: Sequence, chr_1: str, read_count: int,
                        overlap_size: float, max_cluster_bias: int,
                        tables, chrom_lengths, action: bool, gt_round: int,
-                       names: Optional[Sequence[str]] = None, device=None):
+                       names: Optional[Sequence[str]] = None, device=None,
+                       n_shards: int = 1, shard_devices=None):
     """Device counterpart of models.host.resolve_tra; identical outputs."""
-    state = resolve_tra_start(sigs, read_count, max_cluster_bias, device)
+    state = resolve_tra_start(sigs, read_count, max_cluster_bias, device,
+                              n_shards, shard_devices)
     return resolve_tra_finish(state, sigs, chr_1, read_count, overlap_size,
                               max_cluster_bias, tables, chrom_lengths,
                               action, gt_round, names)
@@ -733,12 +839,12 @@ def resolve_tra_device(sigs: Sequence, chr_1: str, read_count: int,
 def resolve_dup_device(sigs: Sequence, chrom: str, read_count: int,
                        max_cluster_bias: int, sv_size: int, max_size: int,
                        action: bool, names: Optional[Sequence[str]] = None,
-                       device=None):
+                       device=None, n_shards: int = 1, shard_devices=None):
     """Device counterpart of models.host.resolve_dup; identical outputs.
     Program rows arrive sorted by pos2 (stable), so the host emission's
     stable re-sort is a no-op."""
     state = resolve_pair_start(sigs, False, read_count, max_cluster_bias,
-                               device)
+                               device, n_shards, shard_devices)
     return resolve_pair_finish(state, sigs, False, chrom, read_count,
                                max_cluster_bias, sv_size, max_size, action,
                                names)
@@ -747,10 +853,10 @@ def resolve_dup_device(sigs: Sequence, chrom: str, read_count: int,
 def resolve_inv_device(sigs: Sequence, chrom: str, read_count: int,
                        max_cluster_bias: int, sv_size: int, max_size: int,
                        action: bool, names: Optional[Sequence[str]] = None,
-                       device=None):
+                       device=None, n_shards: int = 1, shard_devices=None):
     """Device counterpart of models.host.resolve_inv; identical outputs."""
     state = resolve_pair_start(sigs, True, read_count, max_cluster_bias,
-                               device)
+                               device, n_shards, shard_devices)
     return resolve_pair_finish(state, sigs, True, chrom, read_count,
                                max_cluster_bias, sv_size, max_size, action,
                                names)
@@ -808,15 +914,20 @@ class _Facade:
 
 def resolve_indel_multi_start(streams, is_ins: bool, read_count: int,
                               max_cluster_bias: int, device=None,
-                              early=None):
+                              early=None, n_shards: int = 1,
+                              shard_devices=None):
     """Phase 1 of the genome-batched DEL/INS resolver: enqueue the cluster
     program for every int32-safe batch on ``device``. Returns opaque
     state for :func:`resolve_indel_multi_finish`. Enqueueing both SV
     types before reading either's ``n_kept`` overlaps device compute
     with host work. ``early``: {chrom: program handle} dispatched during
     the streaming decode (validated by build_store_native); those
-    chromosomes become singleton jobs that reuse the handles."""
+    chromosomes become singleton jobs that reuse the handles (exact
+    single-device results, whatever ``n_shards``). With ``n_shards`` > 1
+    and a shard device list the other batches become ``"sharded"`` jobs,
+    run at the finish (the cuts are computed on the host)."""
     device = resolve_device(device)
+    devices = pmesh.shard_devices(n_shards, device, shard_devices)
     out = {}
     jobs = []
     streams = [(c, _as_stream(s, is_ins)) for c, s in streams]
@@ -826,7 +937,7 @@ def resolve_indel_multi_start(streams, is_ins: bool, read_count: int,
             h = early.get(c)
             if h is not None and len(s):
                 members = [(c, s, 0)]
-                jobs.append((members, _Facade(members), h))
+                jobs.append((members, _Facade(members), "kernel", h))
             else:
                 rest.append((c, s))
         streams = rest
@@ -838,19 +949,25 @@ def resolve_indel_multi_start(streams, is_ins: bool, read_count: int,
         if not members:
             continue
         facade = _Facade(members)
-        jobs.append((members, facade,
-                     _cluster_stream_dispatch(facade, read_count,
-                                              max_cluster_bias, device)))
+        if devices is not None:
+            jobs.append((members, facade, "sharded", None))
+        else:
+            jobs.append((members, facade, "kernel",
+                         _cluster_stream_dispatch(facade, read_count,
+                                                  max_cluster_bias, device)))
     return dict(out=out, jobs=jobs, is_ins=is_ins, read_count=read_count,
-                max_cluster_bias=max_cluster_bias)
+                max_cluster_bias=max_cluster_bias, device=device,
+                devices=devices)
 
 
 def resolve_indel_multi_compact(state) -> None:
     """Phase 1.5: read each program's n_kept and enqueue the on-device
     output compaction. Run for every state BEFORE prefetch_to_host so
     the host copies move compacted rows only."""
-    state["jobs"] = [(members, facade, _cluster_stream_compact(handle))
-                     for members, facade, handle in state["jobs"]]
+    state["jobs"] = [
+        (members, facade, kind,
+         _cluster_stream_compact(handle) if kind == "kernel" else handle)
+        for members, facade, kind, handle in state["jobs"]]
 
 
 def resolve_indel_multi_finish(state, threshold_gloab: float,
@@ -862,8 +979,13 @@ def resolve_indel_multi_finish(state, threshold_gloab: float,
     emit = _emit_ins if state["is_ins"] else _emit_del
     out = state["out"]
     max_cluster_bias = state["max_cluster_bias"]
-    for members, facade, handle in state["jobs"]:
-        res = _cluster_stream_fetch(handle)
+    for members, facade, kind, handle in state["jobs"]:
+        if kind == "sharded":
+            res = _cluster_stream_sharded(facade, state["read_count"],
+                                          max_cluster_bias, state["devices"],
+                                          state["device"])
+        else:
+            res = _cluster_stream_fetch(handle)
         if res is None or len(res[0]) == 0:
             for c, _, _ in members:
                 out.setdefault(c, ([], []))
@@ -891,3 +1013,86 @@ def resolve_indel_multi_finish(state, threshold_gloab: float,
             out.setdefault(c, ([], []))
     return out
 
+
+def resolve_indel_device_multi(streams, is_ins: bool, read_count: int,
+                               threshold_gloab: float,
+                               max_cluster_bias: int,
+                               minimum_support_reads: int,
+                               remain_reads_ratio: float, action: bool,
+                               n_shards: int = 1, device=None,
+                               shard_devices=None):
+    """Resolve DEL or INS across many chromosomes with one cluster-program
+    dispatch per int32-safe batch (or per shard of it). ``streams``:
+    ordered (chrom, stream) pairs; returns {chrom: (candidates,
+    gt_jobs)}, byte-identical to the per-chromosome resolvers."""
+    state = resolve_indel_multi_start(streams, is_ins, read_count,
+                                      max_cluster_bias, device,
+                                      n_shards=n_shards,
+                                      shard_devices=shard_devices)
+    resolve_indel_multi_compact(state)
+    return resolve_indel_multi_finish(state, threshold_gloab,
+                                      minimum_support_reads,
+                                      remain_reads_ratio, action)
+
+
+# ---------------------------------------------------------------------------
+# multi-device clustering: cut the merged stream at inter-cluster gaps so
+# every device runs the exact local program (no cluster spans a shard)
+# ---------------------------------------------------------------------------
+
+def _gap_cuts(pos: np.ndarray, n_shards: int, bias: int):
+    """Shard boundaries at positions where pos[i]-pos[i-1] > bias, chosen
+    nearest to equal splits. Returns cut indices (len n_shards-1) or None
+    when no valid gap exists near some split (caller falls back)."""
+    n = len(pos)
+    gaps = np.flatnonzero(np.diff(pos) > bias) + 1  # valid cut indices
+    if len(gaps) < n_shards - 1:
+        return None
+    cuts = []
+    for k in range(1, n_shards):
+        target = k * n // n_shards
+        j = int(np.searchsorted(gaps, target))
+        cand = []
+        if j < len(gaps):
+            cand.append(gaps[j])
+        if j > 0:
+            cand.append(gaps[j - 1])
+        cut = min(cand, key=lambda c: abs(int(c) - target))
+        if cuts and cut <= cuts[-1]:
+            return None  # degenerate split; fall back
+        cuts.append(int(cut))
+    return cuts
+
+
+def _cluster_stream_sharded(stream, read_count: int, bias: int, devices,
+                            device):
+    """Sharded :func:`_cluster_stream`: the program on each gap-aligned
+    cut, shard k on ``devices[k]``, joined back in order with
+    shard-unique cluster ids (``k * (shard_rows + 2)`` on) and global
+    stream indices. The serial program runs on ``device`` where no clean
+    cut exists."""
+    n = len(stream)
+    if n == 0:
+        return None
+    plan = _shard_bounds(stream.pos, len(devices), bias)
+    if plan is None:
+        return _cluster_stream(stream, read_count, bias, device)
+    bounds, shard_rows = plan
+    cols = (stream.pos, stream.length, stream.rid)
+    outs = sharded_cluster_structure(
+        [tuple(_upload(c[lo:hi], shard_rows, dev) for c in cols) + (hi - lo,)
+         for dev, lo, hi in zip(devices, bounds, bounds[1:])],
+        bias, read_count, shard_rows)
+    cids, poss, lens, sidxs = [], [], [], []
+    for k, (nk, got) in enumerate(_fetch_shards(
+            outs, ("cid", "pos", "length", "stream_idx"))):
+        if nk == 0:
+            continue
+        cids.append(got["cid"].astype(np.int64) + k * (shard_rows + 2))
+        poss.append(got["pos"].astype(np.int64))
+        lens.append(got["length"].astype(np.int64))
+        sidxs.append(got["stream_idx"].astype(np.int64) + bounds[k])
+    if not cids:
+        return (np.empty(0, np.int64),) * 4
+    return (np.concatenate(cids), np.concatenate(poss),
+            np.concatenate(lens), np.concatenate(sidxs))

@@ -122,3 +122,19 @@ def compact_cluster_outputs(cid, pos, length, stream_idx, cap_out: int):
     packed = torch.where(boundary, sidx | INT32_MIN, sidx)
     return dict(pos=pos[:cap_out], length=length[:cap_out],
                 packed=packed[:cap_out])
+
+
+def sharded_cluster_structure(shards, max_cluster_bias, read_count,
+                              shard_rows: int):
+    """The program on each shard of a stream cut at inter-cluster gaps
+    (pos gap > max_cluster_bias: no cluster spans two shards, so each
+    shard's result equals the global computation's rows). ``shards``:
+    one ``(pos, length, rid, n_valid)`` per shard, tensors of
+    ``shard_rows`` rows on that shard's device. Every shard is enqueued
+    before any is read; returns the per-shard output dicts (``cid``,
+    ``pos``, ``length``, ``stream_idx``, ``n_kept``), each on its
+    shard's device. The counterpart of the JAX package's ``shard_map``
+    wrapper."""
+    return [indel_cluster_structure(pos, length, rid, n_valid,
+                                    max_cluster_bias, read_count, shard_rows)
+            for pos, length, rid, n_valid in shards]

@@ -89,3 +89,18 @@ def compact_pair_outputs(cid, stream_idx, cap_out: int):
     sidx = stream_idx.to(_I32)
     packed = torch.where(boundary, sidx | INT32_MIN, sidx)
     return packed[:cap_out]
+
+
+def sharded_pair_cluster(shards, bias, read_count, shard_rows: int,
+                         break_on_k2: bool):
+    """The pair program on each shard of a stream cut at k1 gaps > bias
+    (always a cluster boundary: the break conditions are OR-ed, so each
+    shard's result equals the global computation's rows). ``shards``:
+    one ``(k1, k2, aux, rid, n_valid)`` per shard, tensors of
+    ``shard_rows`` rows on that shard's device. Every shard is enqueued
+    before any is read; returns the per-shard output dicts, each on its
+    shard's device. The counterpart of the JAX package's ``shard_map``
+    wrapper."""
+    return [pair_cluster_structure(k1, k2, aux, rid, n_valid, bias,
+                                   read_count, shard_rows, break_on_k2)
+            for k1, k2, aux, rid, n_valid in shards]

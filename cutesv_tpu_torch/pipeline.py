@@ -12,10 +12,13 @@ Under ``--distributed`` (``parallel/distributed.py``) each process
 decodes its byte range of the input, the partial decodes are exchanged
 and merged, each process resolves its own chromosome bucket on its own
 device, and process 0 gathers the rows and writes the VCF.
-``--profile`` traces the resolve stage with ``torch.profiler``. The
-slice of ``cutesv_tpu/pipeline.py`` the port carries so far; whatever
-lies outside it (``--n_shards > 1``) raises NotImplementedError naming
-its ROADMAP.md item rather than quietly taking another path.
+``--profile`` traces the resolve stage with ``torch.profiler``.
+``--n_shards N`` (device engine) cuts each cluster stream at gaps wider
+than the bias and runs the cuts on N devices (``parallel/mesh.py``), and
+splits each flush's cover windows over them, one kernel launch per
+slice; with fewer than N cards the serial programs run on the run's
+device, as the JAX package's do with too few devices. The port of
+``cutesv_tpu/pipeline.py``.
 """
 from __future__ import annotations
 
@@ -40,23 +43,22 @@ from cutesv_tpu_torch.io.fasta import FastaFile
 from cutesv_tpu_torch.models import device as device_models
 from cutesv_tpu_torch.models import host as host_models
 from cutesv_tpu_torch.ops.cover import cover_counts_cuda
+from cutesv_tpu_torch.parallel import mesh as pmesh
+from cutesv_tpu_torch.parallel.sharded_cover import make_sharded_cover
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
 log = logging.getLogger("cutesv_tpu_torch")
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        "%s is not ported to cutesv_tpu_torch yet (ROADMAP.md, Queue 1 "
-        "item %d); run it with the cutesv_tpu package" % (what, item))
-
-
-def check_slice(cfg: Config) -> None:
-    """Raise for every option this slice of the port does not carry.
-    Force calling (``cfg.Ivcf``) is not looked at: the CLI routes it to
-    ``forcecalling.run_force_calling``, as the JAX package's does."""
-    if cfg.n_shards > 1:
-        raise _not_ported("--n_shards > 1", 11)
+def _shard_plan(cfg: Config, device, shard_devices=None):
+    """The device list of a device-engine ``--n_shards`` run
+    (``parallel/mesh.py::shard_devices``: ``shard_devices`` when given,
+    else :func:`~cutesv_tpu_torch.parallel.mesh.pick_devices`), or None
+    for the serial programs. The host engine ignores ``--n_shards``, as
+    the JAX package's does."""
+    if cfg.engine == "host":
+        return None
+    return pmesh.shard_devices(cfg.n_shards, device, shard_devices)
 
 
 def load_bed_regions(path: Optional[str]) -> Optional[Dict[str, list]]:
@@ -1148,8 +1150,8 @@ def _tra_cover_pass(per_chrom: Dict[str, tuple], store, cfg: Config,
     finalize()
 
 
-def resolve_all(store: sigstore.SigStore, cfg: Config,
-                device=None) -> Dict[str, List]:
+def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
+                shard_devices=None) -> Dict[str, List]:
     """Cluster + genotype every chromosome; returns chrom -> candidate rows
     in the reference's DEL, INS, INV, DUP, TRA submission order.
 
@@ -1163,9 +1165,15 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
     the DUP/INV windows and, on a native (rank-keyed) store, the DEL/INS
     and TRA windows too. On a Python store DEL/INS genotypes count per
     chromosome and TRA genotypes stay inline, as in the JAX package.
+    With ``cfg.n_shards`` > 1 and a shard device list (:func:`_shard_plan`)
+    the cluster programs of every chromosome without an early program run
+    on gap-aligned cuts, one per device, and each cover flush launches
+    once per device's slice of its windows.
     "host": the numpy oracle for every type, host cover counts."""
     device = resolve_device(device)
-    check_slice(cfg)
+    devices = _shard_plan(cfg, device, shard_devices)
+    shard = dict(n_shards=len(devices) if devices else 1,
+                 shard_devices=devices)
     action = cfg.genotype
     results: Dict[str, List] = {}
     # resolution-side sentinel filter (the reference's seeded cluster loops
@@ -1190,12 +1198,14 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
             [(c, s) for c, s in sig["DEL"].items()
              if ("DEL", c) not in early_res], False, cfg.min_support,
             cfg.max_cluster_bias_DEL, device,
-            early={c: h for (t, c), h in early_k.items() if t == "DEL"})
+            early={c: h for (t, c), h in early_k.items() if t == "DEL"},
+            **shard)
         ins_state = device_models.resolve_indel_multi_start(
             [(c, s) for c, s in sig["INS"].items()
              if ("INS", c) not in early_res], True, cfg.min_support,
             cfg.max_cluster_bias_INS, device,
-            early={c: h for (t, c), h in early_k.items() if t == "INS"})
+            early={c: h for (t, c), h in early_k.items() if t == "INS"},
+            **shard)
 
         def pair_state(svtype, chrom, sigs, is_inv, bias):
             # reuse the streaming decode's early pair program (already
@@ -1204,7 +1214,7 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
             if h is not None:
                 return ("pending", h)
             return device_models.resolve_pair_start(
-                sigs, is_inv, cfg.min_support, bias, device)
+                sigs, is_inv, cfg.min_support, bias, device, **shard)
 
         inv_states = {
             chrom: pair_state("INV", chrom, sigs, True,
@@ -1216,7 +1226,8 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
             for chrom, sigs in sig["DUP"].items()}
         tra_states = {
             chrom: device_models.resolve_tra_start(
-                sigs, cfg.min_support, cfg.max_cluster_bias_TRA, device)
+                sigs, cfg.min_support, cfg.max_cluster_bias_TRA, device,
+                **shard)
             for chrom, sigs in sig["TRA"].items()}
         device_models.prefetch_counts(
             del_state, ins_state, *inv_states.values(),
@@ -1240,7 +1251,8 @@ def resolve_all(store: sigstore.SigStore, cfg: Config,
             cfg.remain_reads_ratio, action, need_names=cfg.report_readid)
         for (t, c), res in early_res.items():
             (del_res if t == "DEL" else ins_res)[c] = res
-        cover_fn = functools.partial(cover_counts_cuda, device=device)
+        cover_fn = (make_sharded_cover(shard["n_shards"], devices)
+                    or functools.partial(cover_counts_cuda, device=device))
     else:
         def rows_of(sigs):
             # native columnar stream -> resolver tuple rows
@@ -1398,7 +1410,7 @@ def _gather_results(results: Dict[str, List], info: dict = None):
     return merged
 
 
-def _profiled_resolve(store, cfg: Config, device):
+def _profiled_resolve(store, cfg: Config, device, shard_devices):
     """resolve_all under torch.profiler (CPU activity, plus CUDA on a
     CUDA device); the trace goes to ``work_dir/torch_trace/resolve.json``
     (chrome trace format). Returns (results, trace path)."""
@@ -1410,7 +1422,7 @@ def _profiled_resolve(store, cfg: Config, device):
     trace_dir = os.path.join(cfg.work_dir, "torch_trace")
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        results = resolve_all(store, cfg, device)
+        results = resolve_all(store, cfg, device, shard_devices)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     path = os.path.join(trace_dir, "resolve.json")
@@ -1420,16 +1432,26 @@ def _profiled_resolve(store, cfg: Config, device):
 
 
 def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
-                 device=None) -> dict:
+                 device=None, shard_devices=None) -> dict:
     """Full discovery run on ``device`` (CUDA unless the caller asks for
     the CPU); returns stage timing + counters. Under ``cfg.distributed``
     the process joins the run's process group first (with more than one
     process): it resolves only its chromosome bucket, and a process
     other than 0 returns after the result exchange, with ``n_calls`` 0
-    and no VCF written."""
+    and no VCF written. ``shard_devices``: the devices of a
+    ``--n_shards`` run in place of :func:`pmesh.pick_devices` (a list
+    may repeat a device); the stats name the devices used
+    (``shard_devices``, [] when the serial programs ran)."""
     argv = argv if argv is not None else []
     device = resolve_device(device)
-    check_slice(cfg)
+    devices = _shard_plan(cfg, device, shard_devices)
+    if devices is not None:
+        log.info("--n_shards %d: sharded over %s"
+                 % (cfg.n_shards, ", ".join(str(d) for d in devices)))
+    elif cfg.n_shards > 1 and cfg.engine != "host":
+        log.info("--n_shards %d: %d CUDA device(s) visible, too few; the "
+                 "serial programs run on %s"
+                 % (cfg.n_shards, torch.cuda.device_count(), device))
     # input validation up front (cuteSV:999-1011)
     if not os.path.isfile(cfg.reference):
         raise FileNotFoundError(
@@ -1456,7 +1478,7 @@ def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
         dist_active = dist.init_distributed(
             cfg.coordinator, cfg.num_processes, cfg.process_id)
     try:
-        return _run_stages(cfg, argv, device, ckpt, dist_active)
+        return _run_stages(cfg, argv, device, devices, ckpt, dist_active)
     finally:
         if dist_active:
             # gloo's threads must stop before the interpreter exits (a
@@ -1464,12 +1486,13 @@ def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
             dist.shutdown_distributed()
 
 
-def _run_stages(cfg: Config, argv: List[str], device, ckpt: Optional[str],
-                dist_active: bool) -> dict:
+def _run_stages(cfg: Config, argv: List[str], device, devices,
+                ckpt: Optional[str], dist_active: bool) -> dict:
     """Decode, resolve and emit of :func:`run_pipeline`, after its input
-    checks; ``dist_active``: this process is one of a multi-process
-    run's group."""
-    stats = {}
+    checks; ``devices``: the shard device list (None: serial);
+    ``dist_active``: this process is one of a multi-process run's
+    group."""
+    stats = dict(shard_devices=[str(d) for d in devices or []])
     t0 = time.time()
     # open + index the reference FASTA on a side thread: the emitter needs
     # it only after resolve, and the open cost is page-in/IO wait that
@@ -1526,9 +1549,9 @@ def _run_stages(cfg: Config, argv: List[str], device, ckpt: Optional[str],
     t1 = time.time()
     if cfg.profile and cfg.work_dir:
         results, stats["profile_trace"] = _profiled_resolve(store, cfg,
-                                                            device)
+                                                            device, devices)
     else:
-        results = resolve_all(store, cfg, device)
+        results = resolve_all(store, cfg, device, devices)
     if dist_active:
         gather: dict = {}
         results = _gather_results(results, gather)

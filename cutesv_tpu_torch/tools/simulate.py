@@ -1,22 +1,31 @@
-"""Synthetic long-read SV simulator.
+"""Synthetic long-read SV simulator (CLI).
 
-Two generators, the ``simulate`` and ``--from_bed`` replay modes of
-``cutesv_tpu/tools/simulate.py``, written with this package's own
-BamWriter (with the same inputs and seed they write the same bytes):
+The generators of ``cutesv_tpu/tools/simulate.py``, written with this
+package's own BamWriter (with the same inputs and seed they write the
+same bytes):
 
 * :func:`simulate` invents a DEL/INS truth set on a grid over a random
   reference and writes a random reference FASTA, a truth bed in the
   VISOR HACk column layout, and a coordinate-sorted BAM of perfect long
   reads carrying the planted SVs at the requested zygosity;
-* :func:`replay` consumes VISOR HACk truth beds restricted to a genome
-  window and synthesizes a reference + reads that carry every
-  replayable record (CIGAR indels for small DEL/INS, SA-tag split reads
-  for large DEL, DUP, INV and reciprocal-translocation breakends), with
-  translocation mates remapped into small synthetic mate chromosomes.
+* :func:`simulate_messy` (``--messy``) writes a heterogeneous stress
+  corpus: ONT-like noise, coverage waves, chimeric reads, clip storms;
+* :func:`replay` (``--from_bed``) consumes VISOR HACk truth beds
+  restricted to a genome window and synthesizes a reference + reads that
+  carry every replayable record (CIGAR indels for small DEL/INS, SA-tag
+  split reads for large DEL, DUP, INV and reciprocal-translocation
+  breakends), with translocation mates remapped into small synthetic
+  mate chromosomes.
+
+Run as ``python -m cutesv_tpu_torch.tools.simulate OUT_PREFIX [options]``.
 """
 from __future__ import annotations
 
+import argparse
 import gzip
+import logging
+import sys
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -114,6 +123,153 @@ def simulate(out_prefix: str, genome_mb: float = 10.0, n_chroms: int = 2,
             for i in range(0, n, 10_000):
                 fa_out.write(s[i:i + 10_000] + "\n")
     return dict(bam=bam, fa=fa, bed=bed, gt=gt_bed, n_reads=n_reads)
+
+
+def simulate_messy(out_prefix: str, genome_mb: float = 20.0,
+                   n_chroms: int = 2, seed: int = 0):
+    """HG002-shaped stress corpus (round-2 verdict item 7): ONT-like
+    noise density, lognormal read lengths, coverage waves (~5-32x),
+    chimeric reads with cross-chromosome SA junctions, soft-clip storms,
+    mixed mapq and secondary records — plus a DEL/INS truth set (chr1
+    het, chr2 hom) in the same truth/zygosity bed format as
+    :func:`simulate`. Reference protocol being proxied:
+    real-data heterogeneity per src/documentation/README.md:96-139."""
+    from cutesv_tpu_torch.io.bam import BamWriter
+
+    rng = np.random.default_rng(seed)
+    n = int(genome_mb * 1_000_000) // n_chroms
+    chroms = ["chr%d" % (i + 1) for i in range(n_chroms)]
+    bam = out_prefix + ".bam"
+    fa = out_prefix + ".fa"
+    bed = out_prefix + ".truth.bed"
+    gt_bed = out_prefix + ".zygosity.bed"
+    n_reads = 0
+    with BamWriter(bam, [(c, n) for c in chroms]) as w, \
+            open(fa, "w") as fa_out, open(bed, "w") as bed_out, \
+            open(gt_bed, "w") as gt_out:
+        refs = [rng.integers(0, 4, size=n, dtype=np.uint8)
+                for _ in range(n_chroms)]
+        for chrom_id, chrom in enumerate(chroms):
+            ref = refs[chrom_id]
+            hom = chrom_id % 2 == 1
+            sv_loci = []
+            p = 100_000
+            k = 0
+            while p < n - 100_000:
+                svlen = int(rng.integers(50, 1500))
+                svtype = "deletion" if k % 2 == 0 else "insertion"
+                seq = rng.integers(0, 4, size=svlen, dtype=np.uint8)
+                sv_loci.append((p, svtype, svlen, seq))
+                if svtype == "deletion":
+                    bed_out.write("%s\t%d\t%d\t%s\t%d\t0\n"
+                                  % (chrom, p, p + svlen, svtype, svlen))
+                else:
+                    bed_out.write("%s\t%d\t%d\t%s\t%s\t0\n"
+                                  % (chrom, p, p, svtype,
+                                     _codes_to_str(seq)))
+                k += 1
+                p += 40_000
+            gt_out.write("%s\t0\t%d\th1\t%.1f\n"
+                         % (chrom, n, 100.0 if hom else 50.0))
+
+            # soft-clip storm loci (clips without SA produce no
+            # signatures in the reference either; parser stress only)
+            storms = [int(x) for x in rng.integers(50_000, n - 50_000, 10)]
+
+            records = []  # (start, qname, flag, mapq, cigar, seq, tags)
+            start = 0
+            ridx = 0
+            while start < n - 45_000:
+                ridx += 1
+                qname = "%s_m%06d" % (chrom, ridx)
+                rlen = int(np.clip(np.exp(rng.normal(np.log(12_000),
+                                                     0.6)), 3_000, 40_000))
+                rlen = min(rlen, n - start - 1_000)
+                cov = 5.0 + 27.0 * (1 + np.sin(2 * np.pi * start / 2e6)) / 2
+                carrier = hom or rng.random() < 0.5
+                mapq = 60
+                r = rng.random()
+                if r < 0.08:
+                    mapq = 10     # below min_mapq: census-excluded
+                elif r < 0.18:
+                    mapq = 20     # exactly at the default gate
+                flag = 256 if rng.random() < 0.02 else 0
+                events = []
+                if carrier:
+                    for p0, t, ln, sq in sv_loci:
+                        if start + 500 < p0 < start + rlen - 500:
+                            events.append((p0, t, ln, sq))
+                # ONT-like noise: dense sub-threshold + medium indels
+                for _ in range(max(1, rlen // 300)):
+                    off = int(rng.integers(600, max(700, rlen - 600)))
+                    events.append((start + off,
+                                   "deletion" if rng.random() < 0.5
+                                   else "insertion",
+                                   int(rng.integers(1, 9)), None))
+                for _ in range(max(1, rlen // 5_000)):
+                    off = int(rng.integers(600, max(700, rlen - 600)))
+                    events.append((start + off,
+                                   "deletion" if rng.random() < 0.5
+                                   else "insertion",
+                                   int(rng.integers(10, 40)), None))
+                events.sort(key=lambda e: e[0])
+                cigar: List = []
+                chunks = []
+                cur = start
+                for p0, t, ln, sq in events:
+                    if p0 <= cur or p0 >= start + rlen - 60 \
+                            or (t == "deletion"
+                                and p0 + ln >= start + rlen - 60):
+                        continue
+                    cigar.append((0, p0 - cur))
+                    chunks.append(ref[cur:p0])
+                    if t == "deletion":
+                        cigar.append((2, ln))
+                        cur = p0 + ln
+                    else:
+                        cigar.append((1, ln))
+                        chunks.append(sq if sq is not None else
+                                      rng.integers(0, 4, size=ln,
+                                                   dtype=np.uint8))
+                        cur = p0
+                end = start + rlen
+                cigar.append((0, end - cur))
+                chunks.append(ref[cur:end])
+                seq = _codes_to_str(np.concatenate(chunks))
+                tags = None
+                if rng.random() < 0.03 and flag == 0:
+                    # chimeric read: SA junction to a random locus on the
+                    # next chromosome (scattered; below min_support)
+                    cid2 = (chrom_id + 1) % n_chroms
+                    p2 = int(rng.integers(10_000, n - 10_000))
+                    tags = {"SA": "%s,%d,+,%dS%dM,60,0;"
+                            % (chroms[cid2], p2 + 1, len(seq) // 2,
+                               len(seq) - len(seq) // 2)}
+                records.append((start, qname, flag, mapq, cigar, seq,
+                                tags))
+                start += max(150, int(rlen / cov))
+            for si, sp in enumerate(storms):
+                for j in range(8):
+                    pos = sp + j * 11
+                    m = 2_000
+                    clip = 1_400
+                    seq = _codes_to_str(np.concatenate([
+                        ref[pos:pos + m],
+                        rng.integers(0, 4, size=clip, dtype=np.uint8)]))
+                    records.append((pos, "%s_clip%02d_%02d"
+                                    % (chrom, si, j), 0, 60,
+                                    [(0, m), (4, clip)], seq, None))
+            records.sort(key=lambda r: r[0])
+            for start, qname, flag, mapq, cigar, seq, tags in records:
+                w.write(qname, flag, chrom_id, start, mapq, cigar, seq,
+                        tags)
+                n_reads += 1
+            fa_out.write(">%s\n" % chrom)
+            s = _codes_to_str(ref)
+            for i in range(0, n, 10_000):
+                fa_out.write(s[i:i + 10_000] + "\n")
+    return dict(bam=bam, fa=fa, bed=bed, gt=gt_bed, n_reads=n_reads)
+
 
 
 def _load_visor_records(paths: List[str], chrom: str, wstart: int,
@@ -370,3 +526,68 @@ def replay(out_prefix: str, beds: List[str], window: str,
             fh.write("%s\t0\t%d\th1\t50.0\n" % (c, n))
     return dict(bam=bam, fa=fa, bed=bed, gt=gt_bed, n_reads=n_reads,
                 n_sv=len(accepted), n_dropped=dropped)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="simulate",
+        description="Generate a synthetic SV truth set + reads "
+                    "(BAM/FASTA/truth bed) for evaluation, or replay "
+                    "existing VISOR truth beds with --from_bed.")
+    p.add_argument("out_prefix", type=str)
+    p.add_argument("--genome_mb", type=float, default=10.0)
+    p.add_argument("--chroms", type=int, default=2)
+    p.add_argument("--coverage", type=int, default=20)
+    p.add_argument("--read_len", type=int, default=20_000)
+    p.add_argument("--sv_spacing", type=int, default=50_000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--zygosity", choices=["het", "hom"], default="het")
+    p.add_argument("--from_bed", type=str, default=None,
+                   help="Comma-separated VISOR HACk beds to replay "
+                        "(e.g. the reference's sim_*.bed.gz).")
+    p.add_argument("--window", type=str, default=None,
+                   help="chrom:start-end window to replay (required "
+                        "with --from_bed).")
+    p.add_argument("--mate_cap", type=int, default=400_000,
+                   help="Synthetic mate-chromosome size for replayed "
+                        "translocations.")
+    p.add_argument("--messy", action="store_true",
+                   help="Generate the heterogeneous stress corpus "
+                        "(ONT-like noise, coverage waves, chimeras, "
+                        "clip storms) instead of the clean simulator.")
+    p.add_argument("--human_layout", action="store_true",
+                   help="24 contigs (chr1-22, X, Y) with hg38-"
+                        "proportional sizes scaled to --genome_mb "
+                        "(overrides --chroms).")
+    args = p.parse_args(argv)
+    logging.basicConfig(stream=sys.stderr, level=logging.INFO,
+                        format="%(asctime)s [%(levelname)s] %(message)s")
+    t0 = time.time()
+    if args.messy:
+        info = simulate_messy(args.out_prefix, args.genome_mb,
+                              args.chroms, args.seed)
+        logging.info("Simulated %d messy reads -> %s (%0.2fs)"
+                     % (info["n_reads"], info["bam"], time.time() - t0))
+        return 0
+    if args.from_bed:
+        if not args.window:
+            p.error("--from_bed requires --window chrom:start-end")
+        info = replay(args.out_prefix, args.from_bed.split(","),
+                      args.window, args.coverage, args.seed,
+                      args.mate_cap)
+        logging.info("Replayed %d SVs (%d dropped) into %d reads -> %s "
+                     "(%0.2fs)" % (info["n_sv"], info["n_dropped"],
+                                   info["n_reads"], info["bam"],
+                                   time.time() - t0))
+        return 0
+    info = simulate(args.out_prefix, args.genome_mb, args.chroms,
+                    args.coverage, args.read_len, args.sv_spacing,
+                    args.seed, args.zygosity,
+                    human_layout=args.human_layout)
+    logging.info("Simulated %d reads -> %s (%0.2fs)"
+                 % (info["n_reads"], info["bam"], time.time() - t0))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -207,3 +207,31 @@ def test_profile_on_cuda_traces_the_cover_kernel(card, tmp_path,
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("cover_count" in k for k in kernels), sorted(set(kernels))
     assert bodies["cuda"] == bodies["cpu"]
+
+
+def test_sharded_run_on_one_card_equals_serial(card, tmp_path, monkeypatch):
+    """--n_shards 2 over [cuda:0] * 2 (two sets of per-shard programs and
+    one cover launch per window slice, on the one card) gives the serial
+    run's body; the stats name the two devices."""
+    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "0")  # every batch shards
+    bed = str(tmp_path / "grid.bed")
+    chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
+    info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
+                  coverage=20, seed=1)
+    bodies = {}
+    for shards in (1, 2):
+        out = tmp_path / ("s%d.vcf" % shards)
+        cfg = Config(input=info["bam"], reference=info["fa"],
+                     output=str(out),
+                     work_dir=str(tmp_path / ("w%d" % shards)),
+                     genotype=True, min_support=5, n_shards=shards)
+        before = cover.LAUNCHES
+        stats = run_pipeline(cfg, ["x"], device=card,
+                             shard_devices=[torch.device("cuda", 0)] * 2)
+        if shards == 2:
+            assert stats["shard_devices"] == ["cuda:0", "cuda:0"]
+            assert cover.LAUNCHES == before + 2   # one flush, two slices
+        bodies[shards] = [l for l in out.read_text().splitlines()
+                          if not l.startswith(("##fileDate", "##CommandLine"))]
+    assert bodies[1] == bodies[2]
+    assert sum(1 for l in bodies[1] if not l.startswith("#")) >= 100

@@ -183,21 +183,40 @@ def test_default_device_raises_without_cuda(tmp_path):
     assert not (tmp_path / "o.vcf").exists()
 
 
-@pytest.mark.parametrize("options,item", [
-    pytest.param({"n_shards": 2}, "item 11", id="n_shards-2-item 11"),
-    pytest.param({"distributed": True, "n_shards": 2}, "item 11",
-                 id="distributed-n_shards-2-item 11"),
+@pytest.mark.parametrize("options", [
+    pytest.param({"n_shards": 2}, id="n_shards-2"),
+    pytest.param({"distributed": True, "num_processes": 1, "n_shards": 2},
+                 id="distributed-n_shards-2"),
 ])
-def test_unported_options_raise(tmp_path, options, item):
-    """--n_shards > 1 raises naming its ROADMAP item, with --distributed
-    too (before any process group is joined)."""
+def test_n_shards_options_equal_jax(tmp_path, options):
+    """--n_shards 2 runs (a single-process --distributed run too): the
+    JAX package's body, over the port's [cpu] * 2."""
     bam, fa = build_engines_fixture(tmp_path)
-    cfg = TConfig(input=str(bam), reference=str(fa),
-                  output=str(tmp_path / "o.vcf"), work_dir=str(tmp_path),
-                  **options)
-    with pytest.raises(NotImplementedError, match=item):
-        tpipe.run_pipeline(cfg, ["x"], device="cpu")
+    bodies = []
+    for cfg_cls, run in ((JConfig, jpipe.run_pipeline),
+                         (TConfig, lambda cfg, argv: tpipe.run_pipeline(
+                             cfg, argv, device="cpu"))):
+        out = tmp_path / ("%s.vcf" % cfg_cls.__module__.split(".")[0])
+        stats = run(cfg_cls(input=str(bam), reference=str(fa),
+                            output=str(out), work_dir=str(tmp_path / out.stem),
+                            genotype=True, min_support=3, **options), ["x"])
+        bodies.append(_strip_volatile(out.read_text()))
+    assert bodies[1] == bodies[0]
+    assert stats["shard_devices"] == ["cpu", "cpu"]
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("device,error", [
+    ("cuda:1", RuntimeError), ("xpu", ValueError)])
+def test_cli_device_reaches_resolve_device(tmp_path, device, error):
+    """--device takes cuda:k (a process pins its card); resolve_device
+    rejects what is neither CUDA nor the CPU, and CUDA without a card."""
+    if device.startswith("cuda") and torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    bam, fa = build_engines_fixture(tmp_path)
+    with pytest.raises(error, match="CUDA|unsupported device"):
+        tcli.main([str(bam), str(fa), str(tmp_path / "o.vcf"),
+                   str(tmp_path / "wd"), "--device", device])
     assert not (tmp_path / "o.vcf").exists()
 
 
