@@ -78,6 +78,19 @@ result line:
          50,000 signatures over a 400,000-row census: three equal arms,
          three times); one scale_run of the 100 Mb corpus in a fresh
          process (its SCALE_RUN line; the main path's call count)
+  tools  the port's tools on the card: bench_kernels at its defaults
+         (2**20 program rows, 2**20 reads, 2**15 windows; its JSON line
+         printed on a line of its own), then one rep of the DEL/INS and
+         pair programs held to the same call on the CPU and one rep of
+         the cover to the plain version on the card and to the host's
+         genotype.cover_counts (the plain version on the CPU takes tens
+         of seconds at that shape); replay_eval's driver over a 12-row
+         DEL/INS bed (--window_mb 2 --coverage 10 --force_call --device
+         cuda): 6/6 DEL and 6/6 INS at presence and genotype level and
+         the cover kernel launched (once per window at most); the pooled
+         baseline (tools/baseline_pool.py, host engine, Python reader,
+         forked workers) over the all-types BAM after this process has
+         used CUDA: its body equals the --engine host body
   profile  one --profile run of the all-types BAM on the main path: the
          body equals the main path's, the torch.profiler trace
          (work_dir/torch_trace/resolve.json) holds the cover kernel, and
@@ -85,7 +98,8 @@ result line:
          of the resolve stage are printed
   k1 main-path shapes  the kernel (bare launch, wrapper, plain version,
          equal) at the window and read counts of each main path's last
-         launch, each process of the distributed runs included
+         launch, each process of the distributed runs and replay_eval's
+         run included
 
 Each main-path run sets the launch counts to 0 just before it and reads
 them just after; the streaming runs print their early programs and
@@ -96,12 +110,15 @@ under build/ beside this script.
 """
 from __future__ import annotations
 
+import gzip
 import json
 import logging
 import multiprocessing
 import os
 import queue
+import random
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -116,17 +133,6 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM; 67 TFLOP/s float32
-# outside the tensor cores = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz. An
-# SM issues at most one 32-bit integer operation per lane and clock (64 on
-# the ALU pipe, 64 more as IMAD on the FMA pipe): 132 x 128 x 1.98e9 =
-# 33.5e12 int32 operations/s.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2
-# two compares and the add; the AND folds into the second compare's
-# predicate input (ISETP ... P0), so it is not an operation of its own
-OPS_PER_PAIR = 3
-
 K1_WINDOWS = 32_768
 K1_READS = 1_500_000
 CLUSTER_ROWS = 1 << 22
@@ -135,14 +141,6 @@ E2E_MB = 100.0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()
-    return out[0]
 
 
 def compute_mode() -> str:
@@ -219,13 +217,6 @@ def time_k1(tens, reps: int) -> tuple:
     return k_ms, k_out, w_ms, w_out
 
 
-def k1_bound_ms(n_sv: int, n_reads: int) -> tuple:
-    ops_s = OPS_PER_PAIR * n_sv * n_reads / INT32_OPS_PER_S
-    bytes_s = 4 * (3 * n_sv + 2 * n_reads) / HBM_BYTES_PER_S
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes")
-
-
 def random_windows(rng, n, span, half=False):
     s = rng.integers(0, span, n).astype(np.float64)
     w = rng.choice([400.0, 2000.0, 1000.0], n)
@@ -245,6 +236,7 @@ def phase_k1(res: dict) -> None:
     from cutesv_tpu_torch.ops import cover
     from cutesv_tpu_torch.ops.sweep import (cover_counts_plain, cover_plain,
                                             scaled_tensors)
+    from cutesv_tpu_torch.tools.bench_kernels import k1_bound_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -298,6 +290,7 @@ def phase_k1_main(res: dict) -> None:
     and primary reads of one 1e9-bp flush), random inputs over that
     corpus's span of offset coordinates."""
     from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
+    from cutesv_tpu_torch.tools.bench_kernels import k1_bound_ms
 
     spans = {"e2e_100mb": int(E2E_MB * 1e6),
              "alltypes": ALLTYPES_MB * 1_000_000}
@@ -307,6 +300,7 @@ def phase_k1_main(res: dict) -> None:
             spans["distributed_%s_%d" % (tag, k)] = spans[corpus]
     for tag, corpus in SHARD_RUNS:
         spans["shards_" + tag] = spans[corpus]
+    spans["replay_eval"] = 2_000_000   # the driver's --window_mb 2
     res["k1"]["main_path"] = {}
     for path, (n_sv, n_reads) in res["main_shapes"].items():
         if n_sv == 0:
@@ -766,7 +760,8 @@ def phase_alltypes(res: dict) -> None:
     main = runs["native_cuda"][1]
     _check_main("alltypes", main, ALLTYPES_GENOME_BP)
     res["corpora"]["alltypes"] = dict(bam=info["bam"], fa=info["fa"],
-                                      vcf=runs["native_cuda"][0])
+                                      vcf=runs["native_cuda"][0],
+                                      host_vcf=runs["host_engine_cuda"][0])
     res["launches_by_path"]["alltypes"] = main["launches"]
     res["main_shapes"]["alltypes"] = main["shape"]
     recall = alltypes_recall(info["bed"], runs["native_cuda"][0])
@@ -1343,6 +1338,177 @@ def phase_shards(res: dict) -> None:
     _shard_tools(res)
 
 
+REPLAY_ROWS = 12
+
+
+def write_replay_bed(path: str, seed: int = 3) -> None:
+    """A gzipped VISOR HACk truth bed of ``REPLAY_ROWS`` rows on
+    chromosome 1 from 100 kb, 20-40 kb apart, DEL and INS in turn, each
+    80-400 bp (the INS with random sequence): the replay driver's smoke
+    bed of the JAX package's tests, from the same seed."""
+    rng = random.Random(seed)
+    rows = []
+    pos = 100_000
+    for k in range(REPLAY_ROWS):
+        ty = ("deletion", "insertion")[k % 2]
+        ln = rng.randrange(80, 400)
+        if ty == "insertion":
+            seq = "".join(rng.choice("ACGT") for _ in range(ln))
+            rows.append("1\t%d\t%d\tinsertion\t%s\t0\n"
+                        % (pos, pos + 1, seq))
+        else:
+            rows.append("1\t%d\t%d\tdeletion\tNone\t0\n"
+                        % (pos, pos + ln))
+        pos += rng.randrange(20_000, 40_000)
+    with gzip.open(path, "wt") as fh:
+        fh.writelines(rows)
+
+
+def replay_eval_argv(bed: str, out: str, device: str) -> list:
+    """The replay driver's arguments over ``bed``: one 2 Mb window of
+    chromosome 1 at 10x, force calling on."""
+    return ["--beds", bed, "--out", out, "--chroms", "1", "--window_mb",
+            "2", "--coverage", "10", "--force_call", "--device", device]
+
+
+def _tools_bench(res: dict) -> None:
+    """bench_kernels at its defaults on the card (its JSON line on a line
+    of its own), then one rep of each program held to the same call on
+    the CPU, and one rep of the cover to the plain version on the card
+    and to the host's count on the CPU."""
+    from cutesv_tpu_torch.genotype import cover_counts
+    from cutesv_tpu_torch.ops import cover
+    from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
+    from cutesv_tpu_torch.tools import bench_kernels as bk
+
+    rec = bk.run("cuda")
+    log(json.dumps(rec))
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    rep = 1
+    for name, make in (("indel_cluster", bk.indel_step),
+                       ("pair_cluster", bk.pair_step)):
+        got = make(bk.N_ROWS, cuda)(rep)
+        want = make(bk.N_ROWS, cpu)(rep)
+        for k, v in want.items():
+            if not torch.equal(got[k].cpu(), v):
+                raise AssertionError("bench_kernels %s rep on the card != "
+                                     "the CPU: %s" % (name, k))
+    s, st, en = bk.cover_inputs(bk.N_SV, bk.N_READS)
+    wins = bk.cover_windows(s, rep)
+    got = cover.cover_counts_cuda(wins, st, en, cuda)
+    plain = cover_plain(*scaled_tensors(wins, st, en, cuda)).cpu().numpy()
+    if not (np.array_equal(got, plain) and np.array_equal(
+            got, cover_counts(wins, st, en))):
+        raise AssertionError("bench_kernels cover rep != the plain version "
+                             "or the host count")
+    cv = rec["cover"]
+    log("tools bench_kernels: stream %.4e B/s (%.3f of 3.35 TB/s), sort "
+        "%.4e rows/s; DEL/INS program %.4e rows/s (%.3f of the sort), pair "
+        "program %.4e rows/s (%.3f); cover %d x %d: end to end %.6f s "
+        "(%.4e compares/s), bare %.6f s (%.4e compares/s), bound %.4f ms "
+        "(%s): %.3f / %.3f of it; rtt %.3e s; one rep of each equal to the "
+        "CPU, the cover to the plain version and the host count"
+        % (rec["stream_roofline_bytes_per_s"], rec["stream_vs_hbm_peak"],
+           rec["sort_roofline_rows_per_s"],
+           rec["indel_cluster"]["rows_per_s"],
+           rec["indel_cluster"]["vs_sort_roofline"],
+           rec["pair_cluster"]["rows_per_s"],
+           rec["pair_cluster"]["vs_sort_roofline"], cv["n_sv"],
+           cv["n_reads"], cv["s"], cv["compares_per_s"], cv["bare_s"],
+           cv["bare_compares_per_s"], cv["bound_ms"], cv["bound_by"],
+           cv["efficiency_vs_bound"], cv["bare_efficiency_vs_bound"],
+           rec["rtt_s"]))
+    res["tools"]["bench_kernels"] = rec
+
+
+def _tools_replay(res: dict) -> None:
+    """replay_eval's driver over the 12-row bed on the card: every row
+    found at presence and genotype level, the cover kernel launched
+    (counts set to 0 just before, read just after)."""
+    import contextlib
+    import io
+
+    from cutesv_tpu_torch.ops import cover
+    from cutesv_tpu_torch.tools import replay_eval
+
+    bed = os.path.join(WORK, "replay_mix.bed.gz")
+    write_replay_bed(bed)
+    out = os.path.join(WORK, "replay_eval")
+    shutil.rmtree(out, ignore_errors=True)
+    buf = io.StringIO()
+    cover.LAUNCHES = 0
+    cover.LAST_SHAPE = (0, 0)
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = replay_eval.main(replay_eval_argv(bed, out, "cuda"))
+    torch.cuda.synchronize()
+    launches, shape = cover.LAUNCHES, list(cover.LAST_SHAPE)
+    wall = time.time() - t0
+    for line in buf.getvalue().splitlines():
+        log("tools replay_eval | %s" % line)
+    with open(os.path.join(out, "summary.json")) as fh:
+        summary = json.load(fh)
+    windows = summary["_meta"]["windows"]
+    for ty in ("DEL", "INS"):
+        got = summary.get(ty, {})
+        if rc != 0 or any(got.get(k) != REPLAY_ROWS // 2
+                          for k in ("rows", "presence", "genotype")):
+            raise AssertionError("replay_eval %s: %s (rc %d), not %d of %d "
+                                 "at presence and genotype level"
+                                 % (ty, got, rc, REPLAY_ROWS // 2,
+                                    REPLAY_ROWS // 2))
+    if not 1 <= launches <= windows:
+        raise AssertionError("replay_eval launched the cover kernel %d times "
+                             "over %d windows" % (launches, windows))
+    log("tools replay_eval: 6/6 DEL and 6/6 INS at genotype level, force "
+        "calling %s; %d window(s), cover launches %d, last at %s; %.1f s"
+        % (json.dumps(summary.get("_force_call")), windows, launches, shape,
+           wall))
+    res["launches_by_path"]["replay_eval"] = launches
+    res["main_shapes"]["replay_eval"] = shape
+    res["tools"]["replay_eval"] = dict(summary=summary, launches=launches,
+                                       wall_s=wall)
+
+
+def _tools_pool(res: dict) -> None:
+    """run_pool_baseline (host engine, Python reader, forked workers) on
+    the all-types BAM after this process has used CUDA: its body equals
+    the port's --engine host body of the same BAM."""
+    from cutesv_tpu_torch import cli
+    from cutesv_tpu_torch.tools.baseline_pool import run_pool_baseline
+
+    corpus = res["corpora"]["alltypes"]
+    out, wd = _fresh("tools", "baseline_pool")
+    argv = [corpus["bam"], corpus["fa"], out, wd, "--genotype", "-s", "5",
+            "--decoder", "python", "--engine", "host"]
+    parser = cli.build_parser()
+    cfg = cli.args_to_config(parser.parse_args(argv),
+                             explicit=cli._explicit_dests(parser, argv))
+    t0 = time.time()
+    stats = run_pool_baseline(cfg, argv, device="cuda")
+    wall = time.time() - t0
+    if _body(out) != _body(corpus["host_vcf"]):
+        raise AssertionError("baseline_pool: the pooled body differs from "
+                             "the --engine host body")
+    log("tools baseline_pool: %d records, %d calls; decode %.3f s, resolve "
+        "%.3f s, emit %.3f s, total %.2f s (index build included, %.2f s "
+        "wall); body equal to the --engine host body"
+        % (stats["n_records"], stats["n_calls"], stats["decode_s"],
+           stats["resolve_s"], stats["emit_s"], stats["total_s"], wall))
+    res["tools"]["baseline_pool"] = dict(stats, wall_s=wall)
+
+
+def phase_tools(res: dict) -> None:
+    """The port's tools on the card (see the module docstring)."""
+    t0 = time.time()
+    res["tools"] = {}
+    _tools_bench(res)
+    _tools_replay(res)
+    _tools_pool(res)
+    res["tools"]["seconds"] = time.time() - t0
+    log("tools: %.1f s" % res["tools"]["seconds"])
+
+
 DIST_KEYS = ("shard_records", "allgather_mb", "allgather_total_mb",
              "allgather_s", "gather_mb", "gather_total_mb", "gather_s",
              "chroms_resolved", "wall_s")
@@ -1446,6 +1612,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs on a CUDA GPU only")
     sys.path.insert(0, REPO)
+    from cutesv_tpu_torch.tools.bench_kernels import card_line
 
     card = card_line()
     log("card: %s" % card)
@@ -1466,6 +1633,7 @@ def main() -> int:
     phase_forcecall(res)
     phase_distributed(res, mode)
     phase_shards(res)
+    phase_tools(res)
     phase_profile(res)
     phase_k1_main(res)
     # every phase passed (each raises otherwise), so the kernel is equal;
@@ -1484,7 +1652,8 @@ def main() -> int:
         "alltypes": res["alltypes"],
         "alltypes_recall": res["alltypes_recall"], "cram": res["cram"],
         "forcecall": res["forcecall"], "distributed": res["distributed"],
-        "shards": res["shards"], "profile": res["profile"]}))
+        "shards": res["shards"], "tools": res["tools"],
+        "profile": res["profile"]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

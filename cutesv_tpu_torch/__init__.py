@@ -8,14 +8,23 @@ package's own copies; the device work is PyTorch compositions plus the
 hand-written CUDA kernels under ``csrc/``.
 
 Package layout:
-    io/        BGZF + BAM + FASTA readers (and a BAM writer for fixtures)
-    ops/       device programs (segments, DEL/INS cluster structure, the
-               cover-count kernel wrapper and its plain version)
+    cli.py, pipeline.py, forcecalling.py
+               the CLI, the discovery pipeline and force calling (-Ivcf)
+    entry.py   the flagship path's entry() and the multi-device dry run
+    io/        BGZF + BAM + CRAM + FASTA readers (and BAM/CRAM writers for
+               fixtures), the native decoder's loader
+    native/    the C++ BAM/CRAM decoder, built with g++ at first use
+    ops/       device programs (segments, the DEL/INS and DUP/INV/TRA
+               cluster programs, the cover-count kernel wrapper and its
+               plain version)
     csrc/      CUDA C++ kernel sources, built with nvcc at first use
-    models/    per-SV-type resolvers (host oracle; DEL/INS device engine)
-    parallel/  multi-process runs (--distributed) over torch.distributed
-    utils/     device selection
-    tools/     corpus simulator
+    models/    per-SV-type resolvers (host oracle; device engine for DEL,
+               INS, DUP, INV and TRA)
+    parallel/  multi-process runs (--distributed) over torch.distributed;
+               --n_shards over a device list (mesh.py, sharded_cover.py)
+    utils/     device selection, the shell/cluster command runner
+    tools/     simulator, evaluation and comparison CLIs, replay driver,
+               pooled baseline, benchmarks
 """
 
 __version__ = "0.1.0"

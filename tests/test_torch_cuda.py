@@ -235,3 +235,48 @@ def test_sharded_run_on_one_card_equals_serial(card, tmp_path, monkeypatch):
                           if not l.startswith(("##fileDate", "##CommandLine"))]
     assert bodies[1] == bodies[2]
     assert sum(1 for l in bodies[1] if not l.startswith("#")) >= 100
+
+
+def test_bench_kernels_on_cuda_equals_cpu(card):
+    """bench_kernels at a small size on the card: its record names the
+    card, and one rep of each program and of the cover equals the same
+    call on the CPU."""
+    from cutesv_tpu_torch.tools import bench_kernels as bk
+
+    n, n_sv = 1 << 14, 2_048
+    rec = bk.run(card, reps=1, n_rows=n, n_reads=n, n_sv=n_sv)
+    assert rec["backend"] == "cuda" and rec["card"] != "cpu"
+    assert rec["stream_vs_hbm_peak"] > 0 and rec["cover"]["bound_ms"] > 0
+    for make in (bk.indel_step, bk.pair_step):
+        got, want = make(n, card)(2), make(n, torch.device("cpu"))(2)
+        for k, v in want.items():
+            assert torch.equal(got[k].cpu(), v), k
+    s, st, en = bk.cover_inputs(n_sv, n)
+    wins = bk.cover_windows(s, 2)
+    assert np.array_equal(cover.cover_counts_cuda(wins, st, en, card),
+                          cover.cover_counts_cuda(wins, st, en, "cpu"))
+
+
+def test_pool_baseline_after_cuda_gives_the_host_body(card, tmp_path):
+    """The pooled baseline forks its workers after this process has used
+    the card: with the host engine they never touch it, and the body is
+    the host engine's."""
+    from cutesv_tpu_torch.tools.baseline_pool import run_pool_baseline
+
+    sim = simulate(str(tmp_path / "sim"), genome_mb=1.0, n_chroms=2,
+                   coverage=10, read_len=8_000, seed=4)
+    bodies = {}
+    for tag in ("host", "pool"):
+        out = tmp_path / ("%s.vcf" % tag)
+        cfg = Config(input=sim["bam"], reference=sim["fa"], output=str(out),
+                     work_dir=str(tmp_path / tag), genotype=True,
+                     min_support=3, engine="host", decoder="python")
+        if tag == "host":
+            run_pipeline(cfg, ["x"], device=card)
+            cover.cover_counts_cuda([(10.0, 20.0)], [0], [30], card)
+        else:
+            run_pool_baseline(cfg, ["x"], n_procs=2, device=card)
+        bodies[tag] = [l for l in out.read_text().splitlines()
+                       if not l.startswith(("##fileDate", "##CommandLine"))]
+    assert bodies["host"] == bodies["pool"]
+    assert sum(1 for l in bodies["host"] if not l.startswith("#")) >= 10
