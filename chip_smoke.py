@@ -12,10 +12,15 @@ result line:
          cutesv_tpu_torch/csrc, g++ for the BAM decoder of native/
   k1     the cover-count kernel at genome scale (32,768 windows x
          1,500,000 reads: one int32 flush of a 30x human genome), plus a
-         ragged, a half-integral and an empty case: the kernel must EQUAL
-         its plain PyTorch version on the card; times of the bare launch
-         (on a preallocated output), of the wrapper call and of the plain
-         version
+         ragged, a half-integral and an empty case, and at the genome
+         shape the adversarial cases of cover_cases (reads sorted and
+         reversed, one 2 Mb read, windows with e < s, reads with end <
+         start, sentinel padding, all reads at one start, the int32
+         extremes, duplicates): the kernel must EQUAL its plain PyTorch
+         version on the card; times of the bare launch (on a preallocated
+         output and scratch), of the wrapper call and of the plain
+         version, the byte floor and the all-pairs bound, and the pairs
+         the pruned ranges hold and the groups of windows compare
   cluster  the DEL/INS cluster program over 2**22 padded rows on the card
          must equal the same call on the CPU (sort stability, dtypes)
   pair   the DUP/INV/TRA pair-cluster program over 2**22 padded rows,
@@ -204,17 +209,32 @@ def time_cuda(fn, reps: int, setup=None) -> tuple:
 
 def time_k1(tens, reps: int) -> tuple:
     """The bare kernel launch (``cover.launch`` into a preallocated
-    output, zeroed outside the timing) and the wrapper call
-    (``cover.cover_tensors``: allocation, checks, launch): median ms and
-    output of each."""
+    output, zeroed outside the timing, on a preallocated scratch buffer)
+    and the wrapper call (``cover.cover_tensors``: allocation, checks,
+    launch): median ms and output of each."""
     from cutesv_tpu_torch.ops import cover
 
     out = torch.zeros(tens[0].shape[0], dtype=torch.int32,
                       device=tens[0].device)
-    k_ms, k_out, _ = time_cuda(lambda: cover.launch(*tens, out), reps,
+    buf = cover.scratch(tens[0].shape[0], tens[2].shape[0], tens[0].device)
+    k_ms, k_out, _ = time_cuda(lambda: cover.launch(*tens, out, buf), reps,
                                setup=out.zero_)
     w_ms, w_out, _ = time_cuda(lambda: cover.cover_tensors(*tens), reps)
     return k_ms, k_out, w_ms, w_out
+
+
+def k1_phases(tens) -> dict:
+    """Device microseconds of each phase of the kernel (``cover.phase_us``)
+    for one warm launch on these tensors."""
+    from cutesv_tpu_torch.ops import cover
+
+    out = torch.zeros(tens[0].shape[0], dtype=torch.int32,
+                      device=tens[0].device)
+    buf = cover.scratch(tens[0].shape[0], tens[2].shape[0], tens[0].device)
+    for _ in range(2):
+        cover.launch(*tens, out, buf)
+    torch.cuda.synchronize()
+    return cover.phase_us(buf)
 
 
 def random_windows(rng, n, span, half=False):
@@ -232,11 +252,74 @@ def random_reads(rng, n, span):
     return st, st + rng.integers(1_000, 40_000, n)
 
 
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+COVER_CASES = ("random", "reads sorted", "reads reversed", "one 2 Mb read",
+               "windows e < s", "reads end < start", "sentinel-padded",
+               "all reads at one start", "int32 extremes", "duplicates")
+
+
+def cover_cases(n_sv: int, n_reads: int, span: int, seed: int) -> dict:
+    """The cover kernel's adversarial cases: name -> (sv_s, sv_e, st, en),
+    int32 numpy arrays of doubled coordinates (as ``scale_and_pad`` gives
+    them) for ``n_sv`` windows and ``n_reads`` reads over ``span`` bp,
+    made from ``seed``. Every case must count as the plain version does.
+    """
+    from cutesv_tpu_torch.ops.sweep import scale_and_pad
+
+    rng = np.random.default_rng(seed)
+    wins = random_windows(rng, n_sv, span)
+    st, en = random_reads(rng, n_reads, span)
+
+    def doubled(w, s, e, sv_multiple=1, read_multiple=1):
+        return tuple(a.astype(np.int32) for a in scale_and_pad(
+            w, s, e, sv_multiple, read_multiple))
+
+    base = doubled(wins, st, en)
+    sv_s, sv_e, rs, re_ = base
+    order = np.argsort(rs, kind="stable")
+    every3 = np.arange(n_sv) % 3 == 0
+    ws_swap = np.where(every3, sv_e, sv_s)
+    we_swap = np.where(every3, sv_s, sv_e)
+    # a few windows whose e lies far below s (a range over much of the span)
+    far = rng.choice(n_sv, max(1, n_sv // 1000), replace=False)
+    we_swap[far] = ws_swap[far] - span
+    long_en = re_.copy()
+    long_en[0] = rs[0] + 2 * 2_000_000   # one 2 Mb read
+    rswap = np.arange(n_reads) % 3 == 1
+    one = np.full(n_reads, rs[n_reads // 2], np.int32)
+    ext_s, ext_e, ext_st, ext_en = (a.copy() for a in base)
+    for arr, vals in ((ext_s, (INT32_MIN, INT32_MAX, INT32_MAX, INT32_MIN)),
+                      (ext_e, (INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN)),
+                      (ext_st, (INT32_MIN, INT32_MAX, INT32_MIN, INT32_MAX)),
+                      (ext_en, (INT32_MAX, INT32_MIN, INT32_MIN, INT32_MAX))):
+        where = rng.choice(len(arr), 8, replace=False)
+        arr[where] = np.resize(np.array(vals, np.int32), 8)
+    half_sv, half_r = max(1, n_sv // 2), max(1, n_reads // 2)
+    return {
+        "random": base,
+        "reads sorted": (sv_s, sv_e, rs[order], re_[order]),
+        "reads reversed": (sv_s, sv_e, rs[order[::-1]], re_[order[::-1]]),
+        "one 2 Mb read": (sv_s, sv_e, rs, long_en),
+        "windows e < s": (ws_swap, we_swap, rs, re_),
+        "reads end < start": (sv_s, sv_e, np.where(rswap, re_, rs),
+                              np.where(rswap, rs, re_)),
+        "sentinel-padded": doubled(wins, st, en, 1000, 4096),
+        "all reads at one start": (sv_s, sv_e, one,
+                                   one + (re_ - rs)),
+        "int32 extremes": (ext_s, ext_e, ext_st, ext_en),
+        "duplicates": (np.concatenate([sv_s, sv_s[:half_sv]]),
+                       np.concatenate([sv_e, sv_e[:half_sv]]),
+                       np.concatenate([rs, rs[:half_r]]),
+                       np.concatenate([re_, re_[:half_r]])),
+    }
+
+
 def phase_k1(res: dict) -> None:
     from cutesv_tpu_torch.ops import cover
     from cutesv_tpu_torch.ops.sweep import (cover_counts_plain, cover_plain,
-                                            scaled_tensors)
-    from cutesv_tpu_torch.tools.bench_kernels import k1_bound_ms
+                                            pruned_pairs, scaled_tensors)
+    from cutesv_tpu_torch.tools.bench_kernels import (cover_bound_ms,
+                                                      dense_bound_ms)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -256,13 +339,19 @@ def phase_k1(res: dict) -> None:
     if not np.array_equal(cover.cover_counts_cuda(wins, st, en, dev),
                           p_out.cpu().numpy().astype(np.int64)):
         raise AssertionError("cover_counts_cuda != plain at genome scale")
-    bound, by = k1_bound_ms(K1_WINDOWS, K1_READS)
-    log("k1 genome scale: %d windows x %d reads: kernel %.3f ms, wrapper "
-        "%.3f ms, plain %.3f ms, bound %.3f ms (%s), %.3e compares/s, "
-        "mean count %.1f"
-        % (K1_WINDOWS, K1_READS, k_ms, w_ms, p_ms, bound, by,
-           K1_WINDOWS * K1_READS / (k_ms / 1e3),
-           float(k_out.double().mean())))
+    bound, by = cover_bound_ms(K1_WINDOWS, K1_READS)
+    dense = dense_bound_ms(K1_WINDOWS, K1_READS)[0]
+    candidate, compared = pruned_pairs(*(t.cpu() for t in tens))
+    pairs_per_s = K1_WINDOWS * K1_READS / (k_ms / 1e3)
+    phases = k1_phases(tens)
+    log("k1 genome scale: %d windows x %d reads: kernel %.4f ms, wrapper "
+        "%.4f ms, plain %.3f ms, bound %.5f ms (%s, %.4f of it), dense "
+        "bound %.3f ms; %.4e pairs answered/s; %d candidate pairs in the "
+        "pruned ranges, %d compared by the groups (of %d); mean count %.1f; "
+        "phases (device us) %s"
+        % (K1_WINDOWS, K1_READS, k_ms, w_ms, p_ms, bound, by, bound / k_ms,
+           dense, pairs_per_s, candidate, compared, K1_WINDOWS * K1_READS,
+           float(k_out.double().mean()), json.dumps(phases)))
 
     # ragged sizes, half-integral windows, empty inputs (wrapper contract)
     cases = {
@@ -281,8 +370,31 @@ def phase_k1(res: dict) -> None:
             raise AssertionError("cover kernel != plain (%s case)" % name)
         log("k1 %s case: %d windows x %d reads equal" % (name, len(w),
                                                         len(s)))
+    # the adversarial cases at the genome-scale shape, each held to the
+    # plain version with max_abs_err 0 and timed
+    cases = {}
+    for name, arrays in cover_cases(K1_WINDOWS, K1_READS, span, 5).items():
+        ctens = [torch.from_numpy(a).to(dev) for a in arrays]
+        c_ms, c_out, cw_ms, cw_out = time_k1(ctens, 5)
+        cp_ms, cp_out, _ = time_cuda(lambda: cover_plain(*ctens), 1)
+        c_err = int((c_out.long() - cp_out.long()).abs().max())
+        if c_err or not torch.equal(cw_out, cp_out):
+            raise AssertionError("cover kernel != plain (%s case): max abs "
+                                 "err %d" % (name, c_err))
+        err = max(err, c_err)
+        cand, comp = pruned_pairs(*(t.cpu() for t in ctens))
+        log("k1 %s case: %d windows x %d reads: kernel %.4f ms, wrapper "
+            "%.4f ms, plain %.3f ms; %d candidate / %d compared pairs; "
+            "max_abs_err 0" % (name, len(arrays[0]), len(arrays[2]), c_ms,
+                               cw_ms, cp_ms, cand, comp))
+        cases[name] = dict(shape=[len(arrays[0]), len(arrays[2])], ms=c_ms,
+                           wrapper_ms=cw_ms, plain_ms=cp_ms,
+                           candidate_pairs=cand, compared_pairs=comp)
     res["k1"] = dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=bound,
-                     bound_by=by, max_abs_err=err)
+                     bound_by=by, dense_bound_ms=dense,
+                     pairs_per_s=pairs_per_s, candidate_pairs=candidate,
+                     compared_pairs=compared, phase_us=phases,
+                     max_abs_err=err, cases=cases)
 
 
 def phase_k1_main(res: dict) -> None:
@@ -290,7 +402,8 @@ def phase_k1_main(res: dict) -> None:
     and primary reads of one 1e9-bp flush), random inputs over that
     corpus's span of offset coordinates."""
     from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
-    from cutesv_tpu_torch.tools.bench_kernels import k1_bound_ms
+    from cutesv_tpu_torch.tools.bench_kernels import (cover_bound_ms,
+                                                      dense_bound_ms)
 
     spans = {"e2e_100mb": int(E2E_MB * 1e6),
              "alltypes": ALLTYPES_MB * 1_000_000}
@@ -314,13 +427,18 @@ def phase_k1_main(res: dict) -> None:
         if not (torch.equal(m_out, mp_out) and torch.equal(mw_out, mp_out)):
             raise AssertionError("cover kernel != plain at the %s main-path "
                                  "shape" % path)
-        m_bound, m_by = k1_bound_ms(n_sv, n_reads)
+        m_bound, m_by = cover_bound_ms(n_sv, n_reads)
+        m_dense = dense_bound_ms(n_sv, n_reads)[0]
+        m_phases = k1_phases(tens)
         log("k1 %s main-path shape: %d windows x %d reads: kernel %.4f ms, "
-            "wrapper %.4f ms, plain %.4f ms, bound %.5f ms (%s), equal"
-            % (path, n_sv, n_reads, m_ms, mw_ms, mp_ms, m_bound, m_by))
+            "wrapper %.4f ms, plain %.4f ms, bound %.5f ms (%s), dense bound "
+            "%.5f ms, equal; phases (device us) %s"
+            % (path, n_sv, n_reads, m_ms, mw_ms, mp_ms, m_bound, m_by,
+               m_dense, json.dumps(m_phases)))
         res["k1"]["main_path"][path] = dict(
             shape=[n_sv, n_reads], ms=m_ms, wrapper_ms=mw_ms,
-            plain_ms=mp_ms, bound_ms=m_bound)
+            plain_ms=mp_ms, bound_ms=m_bound, dense_bound_ms=m_dense,
+            phase_us=m_phases)
 
 
 def synthetic_del_stream(rng, n: int):
@@ -1405,19 +1523,23 @@ def _tools_bench(res: dict) -> None:
     log("tools bench_kernels: stream %.4e B/s (%.3f of 3.35 TB/s), sort "
         "%.4e rows/s; DEL/INS program %.4e rows/s (%.3f of the sort), pair "
         "program %.4e rows/s (%.3f); cover %d x %d: end to end %.6f s "
-        "(%.4e compares/s), bare %.6f s (%.4e compares/s), bound %.4f ms "
-        "(%s): %.3f / %.3f of it; rtt %.3e s; one rep of each equal to the "
-        "CPU, the cover to the plain version and the host count"
+        "(%.4e pairs/s; scaling %.6f s, upload %.6f s, kernel call %.6f s, "
+        "fetch %.6f s), bare %.6f s (%.4e pairs/s), bound %.5f ms (%s): "
+        "%.4f / %.4f of it; dense bound %.4f ms; %d candidate / %d "
+        "compared pairs; rtt %.3e s; one rep of each equal to the CPU, the "
+        "cover to the plain version and the host count"
         % (rec["stream_roofline_bytes_per_s"], rec["stream_vs_hbm_peak"],
            rec["sort_roofline_rows_per_s"],
            rec["indel_cluster"]["rows_per_s"],
            rec["indel_cluster"]["vs_sort_roofline"],
            rec["pair_cluster"]["rows_per_s"],
            rec["pair_cluster"]["vs_sort_roofline"], cv["n_sv"],
-           cv["n_reads"], cv["s"], cv["compares_per_s"], cv["bare_s"],
-           cv["bare_compares_per_s"], cv["bound_ms"], cv["bound_by"],
+           cv["n_reads"], cv["s"], cv["pairs_per_s"], cv["scale_s"],
+           cv["upload_s"], cv["kernel_s"], cv["fetch_s"], cv["bare_s"],
+           cv["bare_pairs_per_s"], cv["bound_ms"], cv["bound_by"],
            cv["efficiency_vs_bound"], cv["bare_efficiency_vs_bound"],
-           rec["rtt_s"]))
+           cv["dense_bound_ms"], cv["candidate_pairs"],
+           cv["compared_pairs"], rec["rtt_s"]))
     res["tools"]["bench_kernels"] = rec
 
 

@@ -164,9 +164,11 @@ def library() -> ctypes.CDLL:
         lib = _libs.get("kernels")
         if lib is None:
             lib = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
+            vp, ci, cs = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+            lib.cutesv_cover_scratch_bytes.argtypes = [ci, ci]
+            lib.cutesv_cover_scratch_bytes.restype = cs
             lib.cutesv_cover_count.argtypes = [vp, vp, ci, vp, vp, ci, vp,
-                                               vp]
+                                               cs, vp, vp]
             lib.cutesv_cover_count.restype = ci
             _libs["kernels"] = lib
     return lib

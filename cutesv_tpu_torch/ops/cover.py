@@ -3,8 +3,11 @@
 Counts, per SV window [s, e), the reads with start <= s and end >= e —
 the genotype read-support count (genotype.cover_counts contract), with
 the contract of ``cutesv_tpu/ops/pallas_sweep.py::cover_counts_pallas``.
-On a CUDA device the wrapper launches the hand-written kernel or raises;
-only a CPU device takes the plain PyTorch version (ops/sweep.py).
+On a CUDA device the wrapper launches the hand-written kernel (one
+cooperative launch that bins the reads and windows on the card and
+compares each window only with the reads that can cover it, on a scratch
+buffer from torch's allocator) or raises; only a CPU device takes the
+plain PyTorch version (ops/sweep.py).
 """
 from __future__ import annotations
 
@@ -20,12 +23,15 @@ from cutesv_tpu_torch.utils.torchsetup import resolve_device
 # the kernel, and at which shape)
 LAUNCHES = 0
 LAST_SHAPE = (0, 0)
+# the kernel's phases after its zeroing (csrc/cover_count.cu), in order
+PHASES = ("stats", "hist", "scan", "scatter", "ranges", "count")
 
 
 def cover_tensors(sv_s, sv_e, st, en):
     """int32 cover counts over doubled int32 coordinates (1-D contiguous
-    tensors, windows and reads unpadded). CUDA tensors launch the kernel
-    (one launch for all reads); CPU tensors use the plain version."""
+    tensors). CUDA tensors launch the kernel (one launch: its passes over
+    all windows and reads, on a scratch buffer from torch's allocator);
+    CPU tensors use the plain version."""
     if sv_s.device.type == "cpu":
         return cover_plain(sv_s, sv_e, st, en)
     for t in (sv_s, sv_e, st, en):
@@ -42,20 +48,40 @@ def cover_tensors(sv_s, sv_e, st, en):
     out = torch.zeros(n_sv, dtype=torch.int32, device=sv_s.device)
     if n_sv == 0 or n_reads == 0:
         return out
-    return launch(sv_s, sv_e, st, en, out)
+    return launch(sv_s, sv_e, st, en, out, scratch(n_sv, n_reads,
+                                                    sv_s.device))
 
 
-def launch(sv_s, sv_e, st, en, out):
+def scratch(n_sv: int, n_reads: int, device) -> torch.Tensor:
+    """The kernel's scratch buffer for these sizes (read bins, window bins,
+    their offsets and the binned copies), from torch's allocator on the
+    current stream of ``device``."""
+    nbytes = build.library().cutesv_cover_scratch_bytes(n_sv, n_reads)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def phase_us(buf: torch.Tensor) -> dict:
+    """Device microseconds of each phase of the last launch on ``buf``:
+    the kernel writes the device clock (ns) after its zeroing and at the
+    end of each phase into the scratch's first bytes. Read it once that
+    launch has finished."""
+    t = buf[:8 * (len(PHASES) + 1)].view(torch.int64).cpu().tolist()
+    return {name: (t[k + 1] - t[k]) / 1e3 for k, name in enumerate(PHASES)}
+
+
+def launch(sv_s, sv_e, st, en, out, buf):
     """One kernel launch on the current stream that ADDS the counts into
-    ``out`` (zeroed by the caller); the inputs are checked by
-    :func:`cover_tensors`, which is what callers use."""
+    ``out`` (zeroed by the caller), using ``buf`` from :func:`scratch`;
+    the inputs are checked by :func:`cover_tensors`, which is what callers
+    use."""
     global LAUNCHES, LAST_SHAPE
     lib = build.library()
     with torch.cuda.device(sv_s.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cutesv_cover_count(
             sv_s.data_ptr(), sv_e.data_ptr(), sv_s.shape[0], st.data_ptr(),
-            en.data_ptr(), st.shape[0], out.data_ptr(), stream)
+            en.data_ptr(), st.shape[0], buf.data_ptr(), buf.numel(),
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("cover_count kernel launch failed: CUDA error %d"
                            % err)

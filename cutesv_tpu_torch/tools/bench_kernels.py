@@ -12,9 +12,15 @@ windows by default):
     rows/s and bytes/s, each stated against the sort roofline: both
     programs are a few stable sorts plus segment reductions;
   * the cover count (``csrc/cover_count.cu``): end to end through
-    ``ops/cover.py::cover_counts_cuda`` (host scaling, upload, launch,
-    fetch), and the bare kernel (``cover.launch`` on resident tensors),
-    in compares/s, against the kernel's bound.
+    ``ops/cover.py::cover_counts_cuda``, and that call's four parts
+    timed one by one (the host's scaling, the upload, the wrapper's
+    kernel call, the fetch), and the bare kernel (``cover.launch`` on
+    resident tensors and a preallocated scratch buffer); in (window,
+    read) pairs answered per second (S * R / s, whatever the kernel
+    compares), against the byte floor of the count (``cover_bound_ms``)
+    and beside the all-pairs operations bound (``dense_bound_ms``), with
+    the candidate pairs the pruned ranges hold and the pairs the
+    kernel's groups of windows compare (``ops/sweep.py::pruned_pairs``).
 
 and two rooflines:
 
@@ -60,8 +66,8 @@ from cutesv_tpu_torch.ops import cover
 from cutesv_tpu_torch.ops.indel_cluster import (indel_cluster_structure,
                                                 lexsort)
 from cutesv_tpu_torch.ops.pair_cluster import pair_cluster_structure
-from cutesv_tpu_torch.ops.sweep import (_READ_TILE, _SV_TILE, cover_plain,
-                                        scaled_tensors)
+from cutesv_tpu_torch.ops.sweep import (cover_plain, pruned_pairs,
+                                        scale_and_pad)
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
 REPS = int(os.environ.get("KBENCH_REPS", "8"))
@@ -85,16 +91,23 @@ INT32_OPS_PER_S = 67e12 / 2
 OPS_PER_PAIR = 3
 
 
-def k1_bound_ms(n_sv: int, n_reads: int) -> tuple:
+def cover_bound_ms(n_sv: int, n_reads: int) -> tuple:
     """The least time the card could take to count ``n_sv`` windows over
-    ``n_reads`` reads, in ms, and what bounds it ("operations" or
-    "bytes"): every (window, read) pair's operations over the int32
-    rate, against each input read once and the counts written once over
-    the HBM rate."""
+    ``n_reads`` reads, whatever computes the count, in ms, and what bounds
+    it ("bytes"): each input read once (two int32 per window and per read)
+    and each int32 count written once, over the HBM rate."""
+    return 4 * (3 * n_sv + 2 * n_reads) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def dense_bound_ms(n_sv: int, n_reads: int) -> tuple:
+    """The bound of the all-pairs formulation (the kernel's earlier
+    design), in ms, and what bounds it: every (window, read) pair's
+    operations over the int32 rate, against the byte floor of
+    :func:`cover_bound_ms`."""
     ops_s = OPS_PER_PAIR * n_sv * n_reads / INT32_OPS_PER_S
-    bytes_s = 4 * (3 * n_sv + 2 * n_reads) / HBM_BYTES_PER_S
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes")
+    bytes_ms = cover_bound_ms(n_sv, n_reads)[0]
+    return (max(ops_s * 1e3, bytes_ms),
+            "operations" if ops_s * 1e3 >= bytes_ms else "bytes")
 
 
 def card_line() -> str:
@@ -241,46 +254,68 @@ def cover_windows(s: np.ndarray, i: int) -> list:
     return list(zip((s + i).astype(float), (s + i + 2000).astype(float)))
 
 
+def _host_best(fn, device: torch.device, n: int = 2):
+    """Best host-clock seconds of ``n`` calls of ``fn()`` after a warm one,
+    each ending in a synchronize on a card, and the last result."""
+    out = fn()
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
 def bench_cover(n_sv: int, n_reads: int, device: torch.device, rtt: float,
                 reps: int) -> dict:
     """The cover count end to end (best of 2 calls after a warm one, host
-    clock) and the bare kernel on resident tensors (the plain version on
-    a CPU device), against the kernel's bound. Compares are counted on
-    the plain version's padding (``ops/sweep.py``'s tiles)."""
+    clock), its parts one by one (host scaling, upload, the wrapper's
+    kernel call, fetch; host clock, each synchronized), and the bare
+    kernel on resident tensors (the plain version on a CPU device),
+    against the byte floor and beside the all-pairs bound."""
     s, starts, ends = cover_inputs(n_sv, n_reads)
+    pairs = float(n_sv) * n_reads
 
     def e2e(i):
         return cover.cover_counts_cuda(cover_windows(s, i), starts, ends,
                                        device)
 
-    e2e(0)
-    best = float("inf")
-    for w in range(2):
-        t0 = time.perf_counter()
-        e2e(1 + w)
-        best = min(best, time.perf_counter() - t0)
-    sp = -(-n_sv // _SV_TILE) * _SV_TILE
-    rp = -(-n_reads // _READ_TILE) * _READ_TILE
-    compares = float(sp) * rp
-
-    sv_s, sv_e, st, en = scaled_tensors(cover_windows(s, 0), starts, ends,
-                                        device)
+    best, _ = _host_best(lambda: e2e(1), device)
+    wins = cover_windows(s, 0)
+    scale_s, arrays = _host_best(
+        lambda: [a.astype(np.int32) for a in scale_and_pad(
+            wins, starts, ends, 1, 1)], device)
+    upload_s, tens = _host_best(
+        lambda: [torch.from_numpy(a).to(device) for a in arrays], device)
+    kernel_s, counts = _host_best(lambda: cover.cover_tensors(*tens),
+                                  device)
+    fetch_s, _ = _host_best(
+        lambda: counts.cpu().numpy().astype(np.int64), device)
+    sv_s, sv_e, st, en = tens
     out = torch.zeros(n_sv, dtype=torch.int32, device=device)
+    buf = (cover.scratch(n_sv, n_reads, device) if device.type == "cuda"
+           else None)
 
     def bare(i):
         if device.type == "cpu":
             return cover_plain(sv_s + i, sv_e + i, st, en).sum(
                 dtype=torch.int64)
         out.zero_()
-        return cover.launch(sv_s + i, sv_e + i, st, en, out).sum(
+        return cover.launch(sv_s + i, sv_e + i, st, en, out, buf).sum(
             dtype=torch.int64)
 
     bare_s = max(_timed(bare, device, reps) - rtt, 1e-9)
-    bound_ms, bound_by = k1_bound_ms(n_sv, n_reads)
+    bound_ms, bound_by = cover_bound_ms(n_sv, n_reads)
+    candidate, compared = pruned_pairs(*(t.cpu() for t in tens))
     return {"n_sv": n_sv, "n_reads": n_reads, "s": best,
-            "compares_per_s": compares / best, "bare_s": bare_s,
-            "bare_compares_per_s": compares / bare_s, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "pairs_per_s": pairs / best, "bare_s": bare_s,
+            "bare_pairs_per_s": pairs / bare_s, "scale_s": scale_s,
+            "upload_s": upload_s, "kernel_s": kernel_s, "fetch_s": fetch_s,
+            "candidate_pairs": candidate, "compared_pairs": compared,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "dense_bound_ms": dense_bound_ms(n_sv, n_reads)[0],
             "efficiency_vs_bound": bound_ms / 1e3 / best,
             "bare_efficiency_vs_bound": bound_ms / 1e3 / bare_s}
 

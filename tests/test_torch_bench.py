@@ -30,9 +30,12 @@ JAX_KEYS = {"backend", "device", "n_rows", "methodology", "rtt_s",
             "indel_cluster", "pair_cluster", "cover", "total_s"}
 PROGRAM_KEYS = {"rows", "s", "rows_per_s", "bytes_per_s", "vs_sort_roofline"}
 # the cover's: the JAX tool's bare tile is its XLA scan, whose counterpart
-# here is the kernel's bound
-COVER_KEYS = {"n_sv", "n_reads", "s", "compares_per_s",
-              "bare_compares_per_s", "bound_ms", "efficiency_vs_bound"}
+# here is the count's byte floor; pairs are S * R answered, and the end to
+# end call is split into its four parts
+COVER_KEYS = {"n_sv", "n_reads", "s", "pairs_per_s", "bare_pairs_per_s",
+              "scale_s", "upload_s", "kernel_s", "fetch_s",
+              "candidate_pairs", "compared_pairs", "bound_ms",
+              "dense_bound_ms", "efficiency_vs_bound"}
 
 
 @pytest.mark.parametrize("n,seed", [(4096, 0), (4096, 1), (100_003, 0),
@@ -82,12 +85,33 @@ def test_cover_rep_equals_the_host_count():
 
 
 def test_k1_bound():
-    """The genome-scale shape (32,768 windows x 1.5 M reads) is bound by
-    operations at 4.402 ms; a handful of windows over many reads by the
-    bytes."""
-    ms, by = bk.k1_bound_ms(32_768, 1_500_000)
+    """At the genome-scale shape (32,768 windows x 1.5 M reads) the
+    all-pairs bound is the operations' 4.402 ms (a handful of windows over
+    many reads: the bytes), and the count's floor is its bytes, 3.699 us,
+    below it everywhere."""
+    ms, by = bk.dense_bound_ms(32_768, 1_500_000)
     assert (round(ms, 3), by) == (4.402, "operations")
-    assert bk.k1_bound_ms(1, 10_000_000)[1] == "bytes"
+    assert bk.dense_bound_ms(1, 10_000_000)[1] == "bytes"
+    floor, by = bk.cover_bound_ms(32_768, 1_500_000)
+    assert (round(floor * 1e3, 3), by) == (3.699, "bytes")
+    for shape in ((32_768, 1_500_000), (1, 10_000_000), (12, 327)):
+        assert bk.cover_bound_ms(*shape)[0] <= bk.dense_bound_ms(*shape)[0]
+    assert bk.cover_bound_ms(1, 10_000_000) == bk.dense_bound_ms(1,
+                                                                 10_000_000)
+
+
+def test_cover_record_pairs_and_parts():
+    """The cover record: pairs answered are S * R over the call's seconds;
+    the pruned ranges hold far fewer candidate pairs than S * R and the
+    blocks compare at least those; no efficiency exceeds 1."""
+    rec = bk.bench_cover(2_000, 40_000, CPU, 0.0, 1)
+    pairs = 2_000 * 40_000
+    assert rec["pairs_per_s"] == pytest.approx(pairs / rec["s"])
+    assert 0 < rec["candidate_pairs"] <= rec["compared_pairs"] < pairs / 10
+    for key in ("scale_s", "upload_s", "kernel_s", "fetch_s"):
+        assert rec[key] > 0
+    assert 0 < rec["efficiency_vs_bound"] <= 1
+    assert 0 < rec["bare_efficiency_vs_bound"] <= 1
 
 
 def test_run_on_cpu_names_the_cpu():

@@ -19,7 +19,7 @@ from cutesv_tpu_torch.genotype import cover_counts
 from cutesv_tpu_torch.ops import cover
 from cutesv_tpu_torch.ops.indel_cluster import indel_cluster_structure
 from cutesv_tpu_torch.ops.pair_cluster import pair_cluster_structure
-from cutesv_tpu_torch.ops.sweep import cover_counts_plain
+from cutesv_tpu_torch.ops.sweep import cover_counts_plain, cover_plain
 from cutesv_tpu_torch.pipeline import run_pipeline
 from cutesv_tpu_torch.tools.simulate import replay, simulate
 
@@ -47,6 +47,32 @@ def test_cover_kernel_matches_plain(card):
     assert cover.LAUNCHES == before + 1
     assert np.array_equal(got, cover_counts_plain(svs, starts, ends, card))
     assert np.array_equal(got, cover_counts(svs, starts, ends))
+
+
+@pytest.mark.parametrize("name", chip_smoke.COVER_CASES)
+@pytest.mark.parametrize("n_sv,n_reads", [(700, 5_000), (3_001, 60_000)])
+def test_cover_kernel_adversarial_cases(card, name, n_sv, n_reads):
+    """Each adversarial case (chip_smoke.cover_cases): the kernel equals
+    the plain version, and one call adds exactly one launch."""
+    arrays = chip_smoke.cover_cases(n_sv, n_reads, 10_000_000, 13)[name]
+    tens = [torch.from_numpy(a).to(card) for a in arrays]
+    before = cover.LAUNCHES
+    got = cover.cover_tensors(*tens)
+    torch.cuda.synchronize()
+    assert cover.LAUNCHES == before + 1
+    assert torch.equal(got, cover_plain(*tens)), name
+
+
+def test_cover_launch_failure_raises(card):
+    """A launch the kernel refuses (a scratch buffer too small for the
+    sizes) raises; nothing falls back to the plain version."""
+    tens = [torch.arange(100, dtype=torch.int32, device=card)] * 4
+    out = torch.zeros(100, dtype=torch.int32, device=card)
+    small = torch.empty(16, dtype=torch.uint8, device=card)
+    before = cover.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cover.launch(*tens, out, small)
+    assert cover.LAUNCHES == before
 
 
 def test_cluster_program_matches_cpu(card):
