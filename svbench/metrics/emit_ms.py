@@ -1,0 +1,7 @@
+"""emit_ms: the mean of the calls' stats["emit_s"], in ms."""
+
+
+def read(run):
+    secs = [c["stats"]["emit_s"] for c in run.calls
+            if not c["error"] and "emit_s" in c["stats"]]
+    return 1e3 * sum(secs) / len(secs) if secs else None
