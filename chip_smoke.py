@@ -97,10 +97,10 @@ result line:
          forked workers) over the all-types BAM after this process has
          used CUDA: its body equals the --engine host body
   profile  one --profile run of the all-types BAM on the main path: the
-         body equals the main path's, the torch.profiler trace
-         (work_dir/torch_trace/resolve.json) holds the cover kernel, and
-         its five longest device operations and the device's busy share
-         of the resolve stage are printed
+         body equals the main path's, the whole call's trace
+         (work_dir/torch_trace/run.json) holds the cover kernel and the
+         program's spans, and its five longest device operations and the
+         device's busy share of the call are printed
   k1 main-path shapes  the kernel (bare launch, wrapper, plain version,
          equal) at the window and read counts of each main path's last
          launch, each process of the distributed runs and replay_eval's
@@ -1654,8 +1654,9 @@ def _busy_ms(events) -> float:
 
 def phase_profile(res: dict) -> None:
     """--profile on the all-types main path: the body is the main path's
-    and the trace holds the cover kernel; prints its five longest device
-    operations and the device's busy share of the resolve stage."""
+    and the trace holds the cover kernel and the program's spans; prints
+    its five longest device operations and the device's busy share of
+    the call."""
     corpus = res["corpora"]["alltypes"]
     out, wd = _fresh("profile", "alltypes")
     stats = _drive("profile alltypes native_cuda",
@@ -1676,6 +1677,10 @@ def phase_profile(res: dict) -> None:
         raise AssertionError(
             "profile: no cover kernel in %s (device operations: %s)"
             % (trace, sorted({e.get("name") for e in device})))
+    spans = {e["name"] for e in events if e.get("cat") == "program_span"}
+    if not {"decode.walk", "genotype.flush", "cover.launch"} <= spans:
+        raise AssertionError("profile: spans missing from %s (spans: %s)"
+                             % (trace, sorted(spans)))
     by_name: dict = {}
     for e in device:
         tot = by_name.setdefault(e["name"], [0, 0.0])
@@ -1683,18 +1688,19 @@ def phase_profile(res: dict) -> None:
         tot[1] += float(e["dur"]) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     busy = _busy_ms(device)
-    resolve_ms = stats["resolve_s"] * 1e3
+    call_ms = stats["total_s"] * 1e3
     log("profile alltypes: trace %s, %d events, %d device operations (%d "
-        "of the cover kernel); device busy %.3f ms of the resolve stage's "
+        "of the cover kernel), %d spans; device busy %.3f ms of the call's "
         "%.3f ms (%.2f%%)" % (os.path.relpath(trace, REPO), len(events),
-                              len(device), len(cover_events), busy,
-                              resolve_ms, 100 * busy / resolve_ms))
+                              len(device), len(cover_events),
+                              len(stats["trace"]["spans"]), busy, call_ms,
+                              100 * busy / call_ms))
     for name, (count, ms) in top:
         log("profile top device operation: %.4f ms in %d call(s): %s"
             % (ms, count, name[:140]))
     res["launches_by_path"]["profile_alltypes"] = stats["launches"]
     res["profile"] = dict(
-        resolve_s=stats["resolve_s"], device_busy_ms=busy,
+        total_s=stats["total_s"], device_busy_ms=busy,
         device_ops=len(device), cover_kernel_events=len(cover_events),
         top=[dict(name=n[:140], count=c, ms=ms) for n, (c, ms) in top])
 

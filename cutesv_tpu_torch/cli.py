@@ -146,8 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Resume from a signature checkpoint in work_dir "
                         "(skips BAM decode).")
     g.add_argument("--profile", action="store_true",
-                   help="Trace the clustering stage with torch.profiler "
-                        "into work_dir/torch_trace/resolve.json.")
+                   help="Trace the whole call into "
+                        "work_dir/torch_trace/run.json: the device's "
+                        "operations (torch.profiler, CUDA activity) and "
+                        "the program's stage spans.")
     g.add_argument("--distributed", action="store_true",
                    help="Multi-host run over torch.distributed (gloo): "
                         "sharded decode, per-process chromosome buckets, "

@@ -46,6 +46,9 @@ def get_lib() -> ctypes.CDLL:
                "bamdecode_records_core_seconds"):
         getattr(lib, fn).restype = ctypes.c_double
         getattr(lib, fn).argtypes = [vp]
+    for fn in ("bamdecode_walk_start_ns", "bamdecode_walk_end_ns"):
+        getattr(lib, fn).restype = i64
+        getattr(lib, fn).argtypes = [vp]
     lib.bamdecode_err.restype = ctypes.c_char_p
     lib.bamdecode_err.argtypes = [vp]
     lib.bamdecode_get.restype = ctypes.c_int
@@ -165,8 +168,11 @@ class NativeDecode:
     # against each other
     first_u: int = 0
     next_u: int = 0
-    # decoder-internal record-walk wall (s)
+    # decoder-internal record-walk wall (s), and its start and end on
+    # the epoch clock (ns; 0 when the walk did not run)
     walk_s: float = 0.0
+    walk_t0_ns: int = 0
+    walk_t1_ns: int = 0
     # busy CORE-seconds, summed over all participating threads: inflate
     # (zlib spans) and record-parse loops
     inflate_core_s: float = 0.0
@@ -296,6 +302,8 @@ def _extract(lib, handle, path: str) -> NativeDecode:
                         first_u=int(_fetch(lib, handle, 80)[0]),
                         next_u=int(_fetch(lib, handle, 81)[0]),
                         walk_s=float(lib.bamdecode_walk_seconds(handle)),
+                        walk_t0_ns=int(lib.bamdecode_walk_start_ns(handle)),
+                        walk_t1_ns=int(lib.bamdecode_walk_end_ns(handle)),
                         inflate_core_s=float(
                             lib.bamdecode_inflate_core_seconds(handle)),
                         records_core_s=float(

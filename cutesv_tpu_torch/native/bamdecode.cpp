@@ -83,6 +83,13 @@ int lzma_stream_buffer_decode(uint64_t* memlimit, uint32_t flags,
 
 namespace {
 
+// now on the epoch clock, in ns (what Python's time.time_ns() reads)
+int64_t epoch_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::system_clock::now().time_since_epoch())
+      .count();
+}
+
 // One reusable zlib inflate stream; ``window_bits`` picks the framing as
 // for inflateInit2 (-15 raw deflate, 15 zlib, 31 gzip).
 class ZInflater {
@@ -773,7 +780,6 @@ struct BgzfChunkReader {
   bool eof = false;
   bool truncated = false;  // stream ended mid-block (corrupt/cut file)
   std::atomic<bool> inflate_bad{false};  // a block failed to inflate
-  double t_read = 0, t_inflate = 0;
   // zero-copy mode: regular files are mmap'd and blocks reference the
   // mapping directly — the per-chunk fread copy of ~the whole file is
   // the single biggest avoidable decode cost on CPU-starved hosts
@@ -858,7 +864,6 @@ struct BgzfChunkReader {
   bool job_pending = false;  // async job published; finish_raw() due
   bool shutdown_ = false;
   std::unique_ptr<ZInflater> caller_d;  // the caller thread's stream
-  std::chrono::steady_clock::time_point t_job0;
   std::atomic<uint64_t> inflate_core_ns{0};  // busy core-ns in inflate_span
 
   void inflate_span(ZInflater* d, const Chunk& c, char* dst) {
@@ -953,7 +958,6 @@ struct BgzfChunkReader {
 
   // Scan up to max_blocks BGZF block headers in the mapping (no copy).
   void read_chunk_map(Chunk& c, int max_blocks) {
-    auto t0 = std::chrono::steady_clock::now();
     c.blocks.clear();
     c.total = 0;
     c.cbuf.len = 0;
@@ -968,14 +972,11 @@ struct BgzfChunkReader {
       c.total += isize;
       map_pos = nxt;
     }
-    t_read += std::chrono::duration<double>(
-        std::chrono::steady_clock::now() - t0).count();
   }
 
   // Read up to max_blocks BGZF block payloads into ``c``.
   void read_chunk(Chunk& c, int max_blocks) {
     if (map) { read_chunk_map(c, max_blocks); return; }
-    auto t0 = std::chrono::steady_clock::now();
     c.blocks.clear();
     c.total = 0;
     c.cbuf.len = 0;
@@ -1024,8 +1025,6 @@ struct BgzfChunkReader {
       c.total += isize;
     }
     c.cbuf.len = used;
-    t_read += std::chrono::duration<double>(
-        std::chrono::steady_clock::now() - t0).count();
   }
 
   // synchronous inflate (header phase, CRAM FASTA load): caller helps
@@ -1043,7 +1042,6 @@ struct BgzfChunkReader {
     finish_raw();  // self-enforce the precondition: a pending async job
                    // shares job_next/job_running with this one; drain it
                    // (no-op when nothing is pending)
-    auto t1 = std::chrono::steady_clock::now();
     if (pool.empty() || c.blocks.size() < 4) {
       job_next.store(0, std::memory_order_relaxed);
       inflate_span(caller_d.get(), c, dst);
@@ -1053,8 +1051,6 @@ struct BgzfChunkReader {
       wait_done();
     }
     check_span_complete(c);
-    t_inflate += std::chrono::duration<double>(
-        std::chrono::steady_clock::now() - t1).count();
   }
 
   // Pull the next chunk: join the read-ahead (or read synchronously), then
@@ -1095,13 +1091,10 @@ struct BgzfChunkReader {
     out.ensure(prefix + cur.total);
     out.start = prefix;
     out.len = prefix + cur.total;
-    t_job0 = std::chrono::steady_clock::now();
     if (pool.empty()) {
       job_next.store(0, std::memory_order_relaxed);
       inflate_span(caller_d.get(), cur, out.data() + prefix);
       check_span_complete(cur);
-      t_inflate += std::chrono::duration<double>(
-          std::chrono::steady_clock::now() - t_job0).count();
     } else {
       publish(cur, out.data() + prefix);
       job_pending = true;
@@ -1109,18 +1102,14 @@ struct BgzfChunkReader {
     return true;
   }
 
-  // join the pending async inflate, helping with leftover blocks. The
-  // accumulated t_inflate spans publish->done, i.e. it now overlaps the
-  // caller's parse of the previous chunk (diagnostic only). Safe no-op
-  // when nothing is pending.
+  // join the pending async inflate, helping with leftover blocks. Safe
+  // no-op when nothing is pending.
   void finish_raw() {
     if (!job_pending) return;
     inflate_span(caller_d.get(), *job_chunk, job_dst);
     wait_done();
     check_span_complete(*job_chunk);
     job_pending = false;
-    t_inflate += std::chrono::duration<double>(
-        std::chrono::steady_clock::now() - t_job0).count();
   }
 };
 
@@ -1201,9 +1190,6 @@ struct Worker {
   std::vector<IS> ins_sigs;
   std::vector<DS> del_sigs;
   std::string ins_scratch;
-  double t_seq = 0;
-  double t_hdr = 0, t_cig = 0, t_sa = 0;
-  bool timing = getenv("CUTESV_DECODE_TIMING") != nullptr;
 
   Worker(const Params& p, const BedRegions& b,
          const std::vector<std::string>& header_chroms)
@@ -1255,8 +1241,6 @@ struct Worker {
 
     if (ref_id < 0 || (flag & 0x4)) return;
     C.n_records++;
-    std::chrono::steady_clock::time_point _s0;
-    if (timing) _s0 = std::chrono::steady_clock::now();
 
     // long-CIGAR convention (SAM spec 4.2.2): records whose real CIGAR
     // has >65535 ops store the sentinel ``<l_seq>S<ref_len>N`` in the
@@ -1348,11 +1332,6 @@ struct Worker {
       C.cen_prim.push(prim); C.cen_name.push(name_id);
     }
 
-    if (timing) {
-      auto now = std::chrono::steady_clock::now();
-      t_hdr += std::chrono::duration<double>(now - _s0).count();
-      _s0 = now;
-    }
     if (l_seq < P.min_read_len) return;  // query_length gate (cuteSV:607)
 
     // SEQ decode is lazy: INS signatures need only their slices; the full
@@ -1372,7 +1351,6 @@ struct Worker {
       }
     };
     auto decode_full = [&]() {
-      auto _t0 = std::chrono::steady_clock::now();
       seq_scratch.resize((size_t)l_seq + 1);
       char* dst = &seq_scratch[0];
       int64_t nb = (l_seq + 1) / 2;
@@ -1381,8 +1359,6 @@ struct Worker {
         memcpy(dst + 2 * k, &pair, 2);
       }
       seq_scratch.resize(l_seq);
-      t_seq += std::chrono::duration<double>(
-          std::chrono::steady_clock::now() - _t0).count();
     };
 
     int process_signal;
@@ -1483,11 +1459,6 @@ struct Worker {
       C.del_len.push(cur.len); C.del_name.push(name_id);
     }
 
-    if (timing) {
-      auto now = std::chrono::steady_clock::now();
-      t_cig += std::chrono::duration<double>(now - _s0).count();
-      _s0 = now;
-    }
     if (process_signal != 1 && process_signal != 2) return;
 
     // find SA tag
@@ -1598,9 +1569,6 @@ struct Worker {
       Extractor ex(P, C);
       ex.analyse_split(split, l_seq, name_id, query_seq);
     }
-    if (timing)
-      t_sa += std::chrono::duration<double>(
-          std::chrono::steady_clock::now() - _s0).count();
   }
 
 };
@@ -1654,7 +1622,10 @@ struct Decoder {
   BedRegions bed;
   std::vector<int64_t> ref_lens;
   std::vector<std::string> header_chroms;
-  double t_seq = 0, t_records = 0, t_hdr = 0, t_cig = 0, t_sa = 0;
+  // the record walk: its wall (s) and its start and end on the epoch
+  // clock (system_clock ns; the program's spans use the same clock)
+  double t_records = 0;
+  int64_t walk_t0_ns = 0, walk_t1_ns = 0;
   // always-on core-second accounting for the bench artifact: busy
   // parse core-ns (all workers) + the reader's busy inflate core-s,
   // copied out of the run()-local reader before it is destroyed
@@ -1799,9 +1770,6 @@ struct Decoder {
         std::lock_guard<std::mutex> g(snap_mu);
         C.merge_from(w->C);
       }
-      t_seq += w->t_seq;
-      t_hdr += w->t_hdr; t_cig += w->t_cig; t_sa += w->t_sa;
-      w->t_seq = w->t_hdr = w->t_cig = w->t_sa = 0;
     } else {
       // workers + ranges are published to the persistent pool; the
       // caller thread parses range 0 and waits for the rest
@@ -1838,9 +1806,6 @@ struct Decoder {
         std::lock_guard<std::mutex> g(snap_mu);
         for (auto* w : ws) C.merge_from(w->C);
       }
-      for (auto* w : ws) { t_seq += w->t_seq;
-        t_hdr += w->t_hdr; t_cig += w->t_cig; t_sa += w->t_sa;
-        w->t_seq = w->t_hdr = w->t_cig = w->t_sa = 0; }
     }
     if (nocigar) fail_status = 6;  // designed no-CIGAR status; a throw
                                    // here would terminate (the caller
@@ -1934,7 +1899,7 @@ struct Decoder {
     // --- records --- (the next chunk inflates on worker threads while the
     // main thread parses the current one; raw double buffers with a
     // leftover gap avoid re-copying the inflated stream every iteration)
-    auto t_rec0 = std::chrono::steady_clock::now();
+    walk_t0_ns = epoch_ns();
     constexpr size_t GAP = 1 << 20;  // holds any partial trailing record
     bool ranged = P.range_start > 0;
     uint64_t uA;  // uncompressed offset of A.data()+A.start (range-local)
@@ -2044,9 +2009,6 @@ struct Decoder {
       } else {
         // a partial record larger than the gap (ultralong read): fall
         // back to one explicit stitch copy
-        if (getenv("CUTESV_DECODE_TIMING"))
-          fprintf(stderr, "bamdecode: stitch fallback (leftover %zu)\n",
-                  leftover);
         RawBuf C2;
         C2.ensure(leftover + (B.len - B.start));
         memcpy(C2.data(), A.data() + p, leftover);
@@ -2059,18 +2021,12 @@ struct Decoder {
       std::swap(A, B);
       have_next = rd.start_next_raw(B, GAP);
     }
-    t_records = std::chrono::duration<double>(
-        std::chrono::steady_clock::now() - t_rec0).count();
+    walk_t1_ns = epoch_ns();
+    t_records = (walk_t1_ns - walk_t0_ns) * 1e-9;
     if (rd.truncated || rd.inflate_bad.load(std::memory_order_relaxed))
       return bail(5);
     inflate_core_s = rd.inflate_core_ns.load() * 1e-9;
     fclose(f);
-    if (getenv("CUTESV_DECODE_TIMING"))
-      fprintf(stderr,
-              "bamdecode timing: seq=%.2fs read=%.2fs inflate=%.2fs "
-              "wall_records=%.2fs hdr=%.2fs cig=%.2fs sa=%.2fs\n",
-              t_seq, rd.t_read, rd.t_inflate, t_records, t_hdr, t_cig,
-              t_sa);
     return 0;
   }
 };
@@ -2230,7 +2186,6 @@ static void bamdecode_finalize(CResult* r) {
   r->finalized = true;  // set FIRST: a failed attempt must not re-run
                         // (callers turn a throw into status 4; results
                         // are only extracted when status == 0)
-  auto tf0 = std::chrono::steady_clock::now();
   Decoder* d = r->dec;
   r->n_records = d->C.n_records;
   // the two rank computations are independent — overlap them (seq_ranks
@@ -2265,10 +2220,6 @@ static void bamdecode_finalize(CResult* r) {
   }
   r->ref_lens = new std::vector<int64_t>(d->ref_lens);
   r->n_header_refs = (int32_t)d->ref_lens.size();
-  if (getenv("CUTESV_DECODE_TIMING"))
-    fprintf(stderr, "bamdecode finalize: %.3fs\n",
-            std::chrono::duration<double>(
-                std::chrono::steady_clock::now() - tf0).count());
   r->finalized = true;
 }
 
@@ -2740,9 +2691,15 @@ int bamdecode_status(CResult* r) { return r->status; }
 int64_t bamdecode_n_records(CResult* r) { return r->n_records; }
 
 // decoder-internal record-walk wall (seconds): the BGZF record loop from
-// end-of-header to end-of-stream — the quantity the measured inflate
-// floor lower-bounds (bench artifact: stages_s.walk_s vs inflate_floor_s)
+// end-of-header to end-of-stream (a CRAM's container loop) — the
+// quantity the measured inflate floor lower-bounds
 double bamdecode_walk_seconds(CResult* r) { return r->dec->t_records; }
+
+// the record walk's start and end on the epoch clock (system_clock ns,
+// the clock of the program's spans and of torch.profiler's events); 0
+// when the walk did not run to its end
+int64_t bamdecode_walk_start_ns(CResult* r) { return r->dec->walk_t0_ns; }
+int64_t bamdecode_walk_end_ns(CResult* r) { return r->dec->walk_t1_ns; }
 
 // busy core-seconds (not walls): summed over all participating threads.
 // inflate = time inside zlib inflate spans; records = time inside the

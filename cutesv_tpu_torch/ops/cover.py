@@ -16,13 +16,20 @@ import torch
 
 from cutesv_tpu_torch.ops import build
 from cutesv_tpu_torch.ops.sweep import cover_plain, scaled_tensors
+from cutesv_tpu_torch.utils import trace
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
 # kernel launches made by launch(), and the (windows, reads) shape of the
-# last one (read by chip_smoke.py to show that the main path went through
-# the kernel, and at which shape)
+# last one: chip_smoke.py reads them to show that the main path went
+# through the kernel, and at which shape; the benchmark (svbench/) resets
+# and reads them around each call. Each launch is also a ``cover.launch``
+# span with its shape.
 LAUNCHES = 0
 LAST_SHAPE = (0, 0)
+# the kernel that launch() enqueues (csrc/cover_count.cu), named in each
+# launch's span (counter ``kernel``) so that a profile's reader finds the
+# launch's device operation whatever the kernel is called
+KERNEL = "cover_count_kernel"
 # the kernel's phases after its zeroing (csrc/cover_count.cu), in order
 PHASES = ("stats", "hist", "scan", "scatter", "ranges", "count")
 
@@ -31,9 +38,11 @@ def cover_tensors(sv_s, sv_e, st, en):
     """int32 cover counts over doubled int32 coordinates (1-D contiguous
     tensors). CUDA tensors launch the kernel (one launch: its passes over
     all windows and reads, on a scratch buffer from torch's allocator);
-    CPU tensors use the plain version."""
+    CPU tensors use the plain version, under the same span as a launch."""
     if sv_s.device.type == "cpu":
-        return cover_plain(sv_s, sv_e, st, en)
+        with trace.span("cover.launch", windows=sv_s.shape[0],
+                        reads=st.shape[0]):
+            return cover_plain(sv_s, sv_e, st, en)
     for t in (sv_s, sv_e, st, en):
         if t.device != sv_s.device or t.dtype != torch.int32 \
                 or t.dim() != 1 or not t.is_contiguous():
@@ -76,7 +85,9 @@ def launch(sv_s, sv_e, st, en, out, buf):
     use."""
     global LAUNCHES, LAST_SHAPE
     lib = build.library()
-    with torch.cuda.device(sv_s.device):
+    with torch.cuda.device(sv_s.device), trace.span(
+            "cover.launch", windows=sv_s.shape[0], reads=st.shape[0],
+            kernel=KERNEL):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cutesv_cover_count(
             sv_s.data_ptr(), sv_e.data_ptr(), sv_s.shape[0], st.data_ptr(),

@@ -12,7 +12,9 @@ Under ``--distributed`` (``parallel/distributed.py``) each process
 decodes its byte range of the input, the partial decodes are exchanged
 and merged, each process resolves its own chromosome bucket on its own
 device, and process 0 gathers the rows and writes the VCF.
-``--profile`` traces the resolve stage with ``torch.profiler``.
+Every stage of a call is a span of ``utils/trace.py`` (returned as
+``stats["trace"]``); ``--profile`` adds the call's ``torch.profiler``
+trace of the device, with the spans merged into it.
 ``--n_shards N`` (device engine) cuts each cluster stream at gaps wider
 than the bias and runs the cuts on N devices (``parallel/mesh.py``), and
 splits each flush's cover windows over them, one kernel launch per
@@ -42,9 +44,11 @@ from cutesv_tpu_torch.io.bam import BamReader
 from cutesv_tpu_torch.io.fasta import FastaFile
 from cutesv_tpu_torch.models import device as device_models
 from cutesv_tpu_torch.models import host as host_models
+from cutesv_tpu_torch.ops import cover as cover_ops
 from cutesv_tpu_torch.ops.cover import cover_counts_cuda
 from cutesv_tpu_torch.parallel import mesh as pmesh
 from cutesv_tpu_torch.parallel.sharded_cover import make_sharded_cover
+from cutesv_tpu_torch.utils import trace
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
 log = logging.getLogger("cutesv_tpu_torch")
@@ -177,7 +181,7 @@ def _stream_tail_default(n_cores: int, n_refs: int) -> bool:
 
 
 def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
-                      nk_comp, census_cache, timing):
+                      nk_comp, census_cache, counters):
     """Mid-decode per-chromosome tail for DEL/INS: fetch the cluster
     program's rows, run host emission and (under --genotype) the
     cover/genotype fill, all under the remaining chromosomes' decode.
@@ -186,7 +190,9 @@ def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
     placeholder patched after join. Byte-identical to the post-decode
     path (same _emit_* / _del_ins_apply functions; the host cover counts
     equal the kernel's). Results are only trusted once the chromosome's
-    fingerprint validates against the final arrays."""
+    fingerprint validates against the final arrays. ``counters`` (the
+    tail's span counters) receives the genotype windows counted on the
+    host."""
     is_ins = svtype == "INS"
     res = device_models._cluster_stream_fetch(nk_comp)
     if res is None:
@@ -223,7 +229,7 @@ def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
         prim = census["is_primary"] == 1
         covers = cover_counts([j["window"] for j in jobs],
                               census["start"][prim], census["end"][prim])
-        timing["tail_windows"] += len(jobs)
+        counters["windows"] = len(jobs)
         _del_ins_apply(None, cands, jobs, census, [covers])
     return (cands, [])
 
@@ -245,8 +251,14 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
     final batch (never under a byte range: the range-end chromosome's
     census may be cut by the budget).
 
-    Returns (handles, fingerprints, early_results, timing), the first
-    three keyed (svtype, chrom_id)."""
+    Spans: ``decode.dispatch`` around each chromosome's snapshot,
+    prepare and program dispatch, around each program's compaction
+    (which waits on the device for its count) and around the DONE
+    batch's prefetch of the counts; ``decode.tail`` around each full
+    tail; the DONE batch's spans carry the counter ``done`` = 1.
+
+    Returns (handles, fingerprints, early_results), each keyed
+    (svtype, chrom_id)."""
     handles: Dict[tuple, object] = {}
     fingerprints: Dict[tuple, dict] = {}
     early_results: Dict[tuple, tuple] = {}
@@ -264,14 +276,71 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
     tail_pref = not cfg.report_readid and tail_env != "0"
     tail_forced_on = tail_env in ("1", "force")
     done = set()
-    # python work done INSIDE the decode window, split into the part
-    # concurrent with the native walk (it takes host CPU from the
-    # inflate workers) and the DONE-batch part after the walk finished;
-    # tail_windows counts the genotype windows the mid-decode tails
-    # counted on the host
-    timing = {"overlap_work_s": 0.0, "done_tail_s": 0.0, "tail_windows": 0}
+
+    def dispatch(c):
+        """Snapshot chromosome ``c``'s rows and dispatch its programs."""
+        pending = []
+        for svtype, is_ins, bias in (
+                ("DEL", False, cfg.max_cluster_bias_DEL),
+                ("INS", True, cfg.max_cluster_bias_INS)):
+            snap = sd.snapshot(svtype, c)
+            if len(snap["pos"]) == 0:
+                continue
+            fp, disp = sigstore.prepare_snapshot(snap, is_ins)
+            stream = device_models.IndelStream(
+                disp["pos"], disp["length"], disp["rid"])
+            handle = device_models._cluster_stream_dispatch(
+                stream, cfg.min_support, bias, device)
+            pending.append((svtype, c, "indel", handle))
+            fingerprints[(svtype, c)] = fp
+        for svtype, is_inv, bias in (
+                ("DUP", False, cfg.max_cluster_bias_DUP),
+                ("INV", True, cfg.max_cluster_bias_INV)):
+            snap = sd.snapshot(svtype, c)
+            if len(snap["pos"]) == 0:
+                continue
+            fp, disp = sigstore.prepare_snapshot_pair(svtype, snap)
+            handle = device_models._pair_cluster_start(
+                disp["k1"], disp["k2"], disp["aux"], disp["keys"],
+                cfg.min_support, bias, is_inv, device)
+            pending.append((svtype, c, "pair", handle))
+            fingerprints[(svtype, c)] = fp
+        return pending
+
+    def compact(item):
+        # mid-decode, blocking here for n_kept and starting the
+        # compaction + host copy costs the decode nothing (it runs on
+        # native threads); resolve later finds the rows local
+        _, _, kind, handle = item
+        if kind == "pair":
+            nk_comp = device_models._pair_cluster_compact(handle)
+        else:
+            nk_comp = device_models._cluster_stream_compact(handle)
+        if nk_comp is not None and nk_comp[1] is not None:
+            device_models._start_host_copies(nk_comp[1])
+        return nk_comp
+
+    def finish(item, nk_comp, finished):
+        svtype, c, kind, _ = item
+        if (kind == "indel" and tail_ok
+                and (not finished or tail_force)
+                and (tail_chrom_ok is None or tail_chrom_ok(c))):
+            # chromosomes completed before end-of-decode run the FULL
+            # tail here (emission + genotype), under the remaining
+            # decode; the final batch keeps the batched kernel cover
+            # path (no decode left to hide under, and one kernel launch
+            # beats per-chromosome sweeps). The program output is
+            # consumed by the tail.
+            with trace.span("decode.tail", done=int(finished),
+                            windows=0) as counters:
+                res = _stream_tail_emit(sd, cfg, svtype, c,
+                                        fingerprints[(svtype, c)], nk_comp,
+                                        census_cache, counters)
+            early_results[(svtype, c)] = res
+        else:
+            handles[(svtype, c)] = nk_comp
+
     while True:
-        t_body0 = time.time()
         p = sd.poll()
         finished = p == sd.DONE
         if tail_ok is None and (finished or p >= 0):
@@ -289,65 +358,21 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
             if c in done:
                 continue
             done.add(c)
-            for svtype, is_ins, bias in (
-                    ("DEL", False, cfg.max_cluster_bias_DEL),
-                    ("INS", True, cfg.max_cluster_bias_INS)):
-                snap = sd.snapshot(svtype, c)
-                if len(snap["pos"]) == 0:
-                    continue
-                fp, disp = sigstore.prepare_snapshot(snap, is_ins)
-                stream = device_models.IndelStream(
-                    disp["pos"], disp["length"], disp["rid"])
-                handle = device_models._cluster_stream_dispatch(
-                    stream, cfg.min_support, bias, device)
-                pending.append((svtype, c, "indel", handle))
-                fingerprints[(svtype, c)] = fp
-            for svtype, is_inv, bias in (
-                    ("DUP", False, cfg.max_cluster_bias_DUP),
-                    ("INV", True, cfg.max_cluster_bias_INV)):
-                snap = sd.snapshot(svtype, c)
-                if len(snap["pos"]) == 0:
-                    continue
-                fp, disp = sigstore.prepare_snapshot_pair(svtype, snap)
-                handle = device_models._pair_cluster_start(
-                    disp["k1"], disp["k2"], disp["aux"], disp["keys"],
-                    cfg.min_support, bias, is_inv, device)
-                pending.append((svtype, c, "pair", handle))
-                fingerprints[(svtype, c)] = fp
+            with trace.span("decode.dispatch", done=int(finished)):
+                pending += dispatch(c)
         if finished and pending:
             # decode is over, so blocking reads are no longer hidden:
             # start every n_kept copy before the compact phase blocks on
             # any of them
-            device_models.prefetch_counts(*[h for _, _, _, h in pending])
-        for svtype, c, kind, handle in pending:
-            # mid-decode, blocking here for n_kept and starting the
-            # compaction + host copy costs the decode nothing (it runs
-            # on native threads); resolve later finds the rows local
-            if kind == "pair":
-                nk_comp = device_models._pair_cluster_compact(handle)
-            else:
-                nk_comp = device_models._cluster_stream_compact(handle)
-            if nk_comp is not None and nk_comp[1] is not None:
-                device_models._start_host_copies(nk_comp[1])
-            if (kind == "indel" and tail_ok
-                    and (not finished or tail_force)
-                    and (tail_chrom_ok is None or tail_chrom_ok(c))):
-                # chromosomes completed before end-of-decode run the
-                # FULL tail here (emission + genotype), under the
-                # remaining decode; the final batch keeps the batched
-                # kernel cover path (no decode left to hide under, and
-                # one kernel launch beats per-chromosome sweeps)
-                early_results[(svtype, c)] = _stream_tail_emit(
-                    sd, cfg, svtype, c, fingerprints[(svtype, c)], nk_comp,
-                    census_cache, timing)
-                continue  # program output consumed by the tail
-            handles[(svtype, c)] = nk_comp
-        timing["done_tail_s" if finished
-               else "overlap_work_s"] += time.time() - t_body0
+            with trace.span("decode.dispatch", done=1):
+                device_models.prefetch_counts(*[h for _, _, _, h in pending])
+        for item in pending:
+            with trace.span("decode.dispatch", done=int(finished)):
+                nk_comp = compact(item)
+            finish(item, nk_comp, finished)
         if finished:
-            break
+            return handles, fingerprints, early_results
         time.sleep(0.02)
-    return handles, fingerprints, early_results, timing
 
 
 def _attach_early_to_store(store, nd, handles, fingerprints,
@@ -390,32 +415,29 @@ def _decode_bam_native_streaming(cfg: Config, bed_ids, device,
 
     native_io.get_lib()  # a failed decoder build raises before the device
     device = resolve_device(device)
-    t_n0 = time.time()
     sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, reference)
     try:
-        handles, fingerprints, early_results, poll_timing = \
-            _streaming_poll_loop(sd, cfg, device)
-        nd = sd.join()
-    finally:
+        handles, fingerprints, early_results = _streaming_poll_loop(
+            sd, cfg, device)
+    except BaseException:
         sd.free()
-    t_n1 = time.time()
+        raise
+    with trace.span("decode.join"), sd:  # the join, then the decoder's free
+        nd = sd.join()
+    _walk_span(nd)
     _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
                              nd.chroms)
     early_fp = {(t, nd.chroms[c]): fp
                 for (t, c), fp in fingerprints.items()}
-    store = sigstore.build_store_native(nd, early=early_fp)
+    store = _build_store(nd, early=early_fp)
     _attach_early_to_store(store, nd, handles, fingerprints, early_results)
-    # decode_s decomposition: native walk (inflate + parse + poll
-    # overlap) vs the store build; walk_s is the decoder-internal
-    # record-loop wall the inflate floor bounds
+    # walk_s is the decoder-internal record-loop wall the inflate floor
+    # bounds; the stage split (native_s, store_s, overlap_work_s, ...)
+    # comes from the spans (_span_stats)
     store.decode_breakdown = dict(
-        decoder="native", streaming=True, native_s=t_n1 - t_n0,
-        store_s=time.time() - t_n1, walk_s=nd.walk_s,
+        decoder="native", streaming=True, walk_s=nd.walk_s,
         inflate_core_s=nd.inflate_core_s,
         records_core_s=nd.records_core_s,
-        overlap_work_s=poll_timing["overlap_work_s"],
-        done_tail_s=poll_timing["done_tail_s"],
-        tail_windows=poll_timing["tail_windows"],
         early_dispatched=len(handles) + len(early_results),
         early_kernels=len(store.early_kernels),
         early_tails=len(store.early_results))
@@ -484,19 +506,19 @@ def _decode_sharded_streaming(cfg: Config, bed_ids, device):
     k = dist.process_index()
     ranges = dist.plan_shard_ranges(cfg.input, n)
     rng = ranges[k][:2]
-    t_n0 = time.time()
     sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, byte_range=rng)
     try:
-        handles, fingerprints, early_results, poll_timing = \
-            _streaming_poll_loop(sd, cfg, device,
-                                 tail_chrom_ok=_shard_tail_gate(sd, rng[0]),
-                                 allow_done_tail=False)
-        nd_local = sd.join()
-    finally:
+        handles, fingerprints, early_results = _streaming_poll_loop(
+            sd, cfg, device, tail_chrom_ok=_shard_tail_gate(sd, rng[0]),
+            allow_done_tail=False)
+    except BaseException:
         sd.free()
-    t_n1 = time.time()
-    log.info("sharded decode: shard %d/%d decoded %d records in %.2fs "
-             "(streaming)", k, n, nd_local.n_records, t_n1 - t_n0)
+        raise
+    with trace.span("decode.join"), sd:  # the join, then the decoder's free
+        nd_local = sd.join()
+    _walk_span(nd_local)
+    log.info("sharded decode: shard %d/%d decoded %d records, walk %.2fs "
+             "(streaming)", k, n, nd_local.n_records, nd_local.walk_s)
     gather: dict = {}
     parts = dist.allgather_obj(nd_local, gather)
     dist.check_shard_boundaries(ranges,
@@ -515,16 +537,12 @@ def _decode_sharded_streaming(cfg: Config, bed_ids, device):
         if "seq_off" in fp:
             fp["seq_off"] = fp["seq_off"] + blob_base
         early_fp[(t, nd.chroms[c])] = fp
-    store = sigstore.build_store_native(nd, early=early_fp)
+    store = _build_store(nd, early=early_fp)
     _attach_early_to_store(store, nd, handles, fingerprints, early_results)
     store.part_census_counts = pcc
     store.decode_breakdown = dict(
         _sharded_breakdown(nd_local.n_records, nd_local, gather, k, n),
         streaming=True,
-        native_s=t_n1 - t_n0, store_s=time.time() - t_n1,
-        overlap_work_s=poll_timing["overlap_work_s"],
-        done_tail_s=poll_timing["done_tail_s"],
-        tail_windows=poll_timing["tail_windows"],
         early_dispatched=len(handles) + len(early_results),
         early_kernels=len(store.early_kernels),
         early_tails=len(store.early_results))
@@ -583,7 +601,7 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
                                      info=gather)
             _check_coordinate_sorted(nd.arrays["all_chr"],
                                      nd.arrays["all_start"], nd.chroms)
-            store = sigstore.build_store_native(nd)
+            store = _build_store(nd)
             store.part_census_counts = nd.part_census_counts
             store.decode_breakdown = dict(
                 _sharded_breakdown(nd.shard_records, nd, gather,
@@ -594,9 +612,10 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
                           for i in range(len(nd.ref_lengths))]
             return store, None, references, nd.n_records
     nd = native_io.decode(cfg.input, cfg, bed_ids, reference=reference)
+    _walk_span(nd)
     _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
                              nd.chroms)
-    store = sigstore.build_store_native(nd)
+    store = _build_store(nd)
     store.decode_breakdown = dict(decoder="native", streaming=False,
                                   walk_s=nd.walk_s,
                                   inflate_core_s=nd.inflate_core_s,
@@ -604,6 +623,32 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
     references = [(nd.chroms[i], int(nd.ref_lengths[i]))
                   for i in range(len(nd.ref_lengths))]
     return store, None, references, nd.n_records
+
+
+def _walk_span(nd) -> None:
+    """The native decoder's record walk as the span ``decode.walk`` (its
+    own start and end on the epoch clock, on the decoder's thread) with
+    its records and core-seconds; none when the walk did not run."""
+    if nd.walk_t1_ns > nd.walk_t0_ns > 0:
+        trace.add_span("decode.walk", nd.walk_t0_ns, nd.walk_t1_ns,
+                       "decoder", records=nd.n_records,
+                       inflate_core_s=nd.inflate_core_s,
+                       records_core_s=nd.records_core_s)
+
+
+def _n_sigs(store) -> Dict[str, int]:
+    return {t: sum(len(v) for v in store.sigs[t].values())
+            for t in sigstore.SVTYPES}
+
+
+def _build_store(nd, early=None) -> sigstore.SigStore:
+    """``sigstore.build_store_native`` as the span ``store``, with the
+    signatures per type."""
+    with trace.span("store") as counters:
+        store = sigstore.build_store_native(nd, early=early)
+        counters.update(("signatures." + t, n)
+                        for t, n in _n_sigs(store).items())
+    return store
 
 
 def _check_coordinate_sorted(chr_ids, starts, chrom_names) -> None:
@@ -807,107 +852,115 @@ def _batched_cover_multi(specs, store, cover_fn=None,
 
     ``extra_blocks``: additional (windows, starts, ends, sink) dicts
     counted in the SAME kernel call against their own interval sets.
-    Each sink(counts) receives its windows' counts."""
-    cover = cover_fn or cover_counts
-    state = dict(offset=0, windows=[], starts=[], ends=[], spans=[],
-                 extras=[])
+    Each sink(counts) receives its windows' counts.
 
-    def flush():
-        if state["spans"] or state["extras"]:
-            allc = cover(state["windows"],
-                         np.concatenate(state["starts"]),
-                         np.concatenate(state["ends"]))
-            for si, chrom, ranges in state["spans"]:
-                per_chrom, _, apply_fn = specs[si]
-                cands, jobs = per_chrom[chrom]
-                counts = [allc[lo:lo + m] for lo, m in ranges]
-                apply_fn(chrom, cands, jobs, store.census[chrom], counts)
-            for lo, m, sink in state["extras"]:
-                sink(allc[lo:lo + m])
-        state.update(offset=0, windows=[], starts=[], ends=[], spans=[],
+    The pass is the span ``genotype``, each flush the span
+    ``genotype.flush`` (its windows, reads and kernel launches)."""
+    with trace.span("genotype"):
+        cover = cover_fn or cover_counts
+        state = dict(offset=0, windows=[], starts=[], ends=[], spans=[],
                      extras=[])
 
-    # chromosome union in first-appearance order: each chromosome's
-    # census is appended once, shared by every spec active on it
-    chrom_order: List[str] = []
-    seen = set()
-    for per_chrom, _, _ in specs:
-        for c in per_chrom:
-            if per_chrom[c][1] and c not in seen:
-                seen.add(c)
-                chrom_order.append(c)
+        def flush():
+            if state["spans"] or state["extras"]:
+                wins = state["windows"]
+                starts = np.concatenate(state["starts"])
+                launches = cover_ops.LAUNCHES
+                with trace.span("genotype.flush", windows=len(wins),
+                                reads=len(starts)) as fc:
+                    allc = cover(wins, starts, np.concatenate(state["ends"]))
+                    fc["launches"] = cover_ops.LAUNCHES - launches
+                for si, chrom, ranges in state["spans"]:
+                    per_chrom, _, apply_fn = specs[si]
+                    cands, jobs = per_chrom[chrom]
+                    counts = [allc[lo:lo + m] for lo, m in ranges]
+                    apply_fn(chrom, cands, jobs, store.census[chrom], counts)
+                for lo, m, sink in state["extras"]:
+                    sink(allc[lo:lo + m])
+            state.update(offset=0, windows=[], starts=[], ends=[], spans=[],
+                         extras=[])
 
-    for chrom in chrom_order:
-        census = store.census.get(chrom)
-        active = [si for si, (per_chrom, _, _) in enumerate(specs)
-                  if per_chrom.get(chrom, (None, None))[1]]
-        if census is None:
+        # chromosome union in first-appearance order: each chromosome's
+        # census is appended once, shared by every spec active on it
+        chrom_order: List[str] = []
+        seen = set()
+        for per_chrom, _, _ in specs:
+            for c in per_chrom:
+                if per_chrom[c][1] and c not in seen:
+                    seen.add(c)
+                    chrom_order.append(c)
+
+        for chrom in chrom_order:
+            census = store.census.get(chrom)
+            active = [si for si, (per_chrom, _, _) in enumerate(specs)
+                      if per_chrom.get(chrom, (None, None))[1]]
+            if census is None:
+                for si in active:
+                    per_chrom = specs[si][0]
+                    per_chrom[chrom] = ([], per_chrom[chrom][1])
+                continue
+            wgs = {si: specs[si][1](specs[si][0][chrom][1]) for si in active}
+            hi = int(census["end"].max()) if len(census["end"]) else 0
             for si in active:
-                per_chrom = specs[si][0]
-                per_chrom[chrom] = ([], per_chrom[chrom][1])
-            continue
-        wgs = {si: specs[si][1](specs[si][0][chrom][1]) for si in active}
-        hi = int(census["end"].max()) if len(census["end"]) else 0
-        for si in active:
-            for g in wgs[si]:
-                if g:
-                    hi = max(hi, int(max(w[1] for w in g)))
-        span = hi + 2
-        if span > _FLUSH_BP:
-            # a single chromosome beyond the int32-safe coordinate budget
-            # (the kernel doubles coordinates): count its covers exactly
-            # on the host instead of wrapping int32 on the device
-            prim_h = census["is_primary"] == 1
+                for g in wgs[si]:
+                    if g:
+                        hi = max(hi, int(max(w[1] for w in g)))
+            span = hi + 2
+            if span > _FLUSH_BP:
+                # a single chromosome beyond the int32-safe coordinate budget
+                # (the kernel doubles coordinates): count its covers exactly
+                # on the host instead of wrapping int32 on the device
+                prim_h = census["is_primary"] == 1
+                for si in active:
+                    per_chrom, _, apply_fn = specs[si]
+                    cands, jobs = per_chrom[chrom]
+                    counts = [np.asarray(cover_counts(
+                        g, census["start"][prim_h], census["end"][prim_h]))
+                        for g in wgs[si]]
+                    apply_fn(chrom, cands, jobs, census, counts)
+                continue
+            if state["offset"] + span > _FLUSH_BP:
+                flush()
+            offset = state["offset"]
+            prim = census["is_primary"] == 1
             for si in active:
-                per_chrom, _, apply_fn = specs[si]
-                cands, jobs = per_chrom[chrom]
-                counts = [np.asarray(cover_counts(
-                    g, census["start"][prim_h], census["end"][prim_h]))
-                    for g in wgs[si]]
-                apply_fn(chrom, cands, jobs, census, counts)
-            continue
-        if state["offset"] + span > _FLUSH_BP:
-            flush()
-        offset = state["offset"]
-        prim = census["is_primary"] == 1
-        for si in active:
-            ranges = []
-            for g in wgs[si]:
-                lo = len(state["windows"])
-                state["windows"].extend((a + offset, b + offset)
-                                        for a, b in g)
-                ranges.append((lo, len(g)))
-            state["spans"].append((si, chrom, ranges))
-        state["starts"].append(census["start"][prim] + offset)
-        state["ends"].append(census["end"][prim] + offset)
-        state["offset"] = offset + span
-    for blk in extra_blocks:
-        wins, starts, ends, sink = (blk["windows"], blk["starts"],
-                                    blk["ends"], blk["sink"])
-        if not wins:
-            sink(np.zeros(0, np.int64))
-            continue
-        hi = int(ends.max()) + 2 if len(ends) else 0
-        hi = max(hi, max(e for _, e in wins) + 2)
-        if hi > _FLUSH_BP or len(wins) * 32 < len(starts):
-            # host sweep when forced by the int32 budget — or when this
-            # block's PRIVATE interval set dwarfs its window count: an
-            # extra block ships its own intervals (the specs' censuses
-            # are shared across window groups, these are not), so a host
-            # searchsorted answers few windows in O(m log n) for less
-            # than the upload of the whole table
-            sink(np.asarray(cover_counts(wins, starts, ends)))
-            continue
-        if state["offset"] + hi > _FLUSH_BP:
-            flush()
-        off = state["offset"]
-        lo = len(state["windows"])
-        state["windows"].extend((a + off, b + off) for a, b in wins)
-        state["extras"].append((lo, len(wins), blk["sink"]))
-        state["starts"].append(starts + off)
-        state["ends"].append(ends + off)
-        state["offset"] = off + hi
-    flush()
+                ranges = []
+                for g in wgs[si]:
+                    lo = len(state["windows"])
+                    state["windows"].extend((a + offset, b + offset)
+                                            for a, b in g)
+                    ranges.append((lo, len(g)))
+                state["spans"].append((si, chrom, ranges))
+            state["starts"].append(census["start"][prim] + offset)
+            state["ends"].append(census["end"][prim] + offset)
+            state["offset"] = offset + span
+        for blk in extra_blocks:
+            wins, starts, ends, sink = (blk["windows"], blk["starts"],
+                                        blk["ends"], blk["sink"])
+            if not wins:
+                sink(np.zeros(0, np.int64))
+                continue
+            hi = int(ends.max()) + 2 if len(ends) else 0
+            hi = max(hi, max(e for _, e in wins) + 2)
+            if hi > _FLUSH_BP or len(wins) * 32 < len(starts):
+                # host sweep when forced by the int32 budget — or when this
+                # block's PRIVATE interval set dwarfs its window count: an
+                # extra block ships its own intervals (the specs' censuses
+                # are shared across window groups, these are not), so a host
+                # searchsorted answers few windows in O(m log n) for less
+                # than the upload of the whole table
+                sink(np.asarray(cover_counts(wins, starts, ends)))
+                continue
+            if state["offset"] + hi > _FLUSH_BP:
+                flush()
+            off = state["offset"]
+            lo = len(state["windows"])
+            state["windows"].extend((a + off, b + off) for a, b in wins)
+            state["extras"].append((lo, len(wins), blk["sink"]))
+            state["starts"].append(starts + off)
+            state["ends"].append(ends + off)
+            state["offset"] = off + hi
+        flush()
 
 
 def _batched_cover_pass(per_chrom: Dict[str, tuple], store, cover_fn,
@@ -1190,129 +1243,139 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
 
     min_sup5 = min(cfg.min_support, 5)
     if use_device:
-        early_k = getattr(store, "early_kernels", None) or {}
-        # chromosomes whose FULL tail (emission + genotype) already ran
-        # during the streaming decode skip resolution entirely
-        early_res = getattr(store, "early_results", None) or {}
-        del_state = device_models.resolve_indel_multi_start(
-            [(c, s) for c, s in sig["DEL"].items()
-             if ("DEL", c) not in early_res], False, cfg.min_support,
-            cfg.max_cluster_bias_DEL, device,
-            early={c: h for (t, c), h in early_k.items() if t == "DEL"},
-            **shard)
-        ins_state = device_models.resolve_indel_multi_start(
-            [(c, s) for c, s in sig["INS"].items()
-             if ("INS", c) not in early_res], True, cfg.min_support,
-            cfg.max_cluster_bias_INS, device,
-            early={c: h for (t, c), h in early_k.items() if t == "INS"},
-            **shard)
-
-        def pair_state(svtype, chrom, sigs, is_inv, bias):
-            # reuse the streaming decode's early pair program (already
-            # compacted and copying to the host) when it validated
-            h = early_k.get((svtype, chrom))
-            if h is not None:
-                return ("pending", h)
-            return device_models.resolve_pair_start(
-                sigs, is_inv, cfg.min_support, bias, device, **shard)
-
-        inv_states = {
-            chrom: pair_state("INV", chrom, sigs, True,
-                              cfg.max_cluster_bias_INV)
-            for chrom, sigs in sig["INV"].items()}
-        dup_states = {
-            chrom: pair_state("DUP", chrom, sigs, False,
-                              cfg.max_cluster_bias_DUP)
-            for chrom, sigs in sig["DUP"].items()}
-        tra_states = {
-            chrom: device_models.resolve_tra_start(
-                sigs, cfg.min_support, cfg.max_cluster_bias_TRA, device,
+        with trace.span("resolve.programs"):
+            early_k = getattr(store, "early_kernels", None) or {}
+            # chromosomes whose FULL tail (emission + genotype) already ran
+            # during the streaming decode skip resolution entirely
+            early_res = getattr(store, "early_results", None) or {}
+            del_state = device_models.resolve_indel_multi_start(
+                [(c, s) for c, s in sig["DEL"].items()
+                 if ("DEL", c) not in early_res], False, cfg.min_support,
+                cfg.max_cluster_bias_DEL, device,
+                early={c: h for (t, c), h in early_k.items() if t == "DEL"},
                 **shard)
-            for chrom, sigs in sig["TRA"].items()}
-        device_models.prefetch_counts(
-            del_state, ins_state, *inv_states.values(),
-            *dup_states.values(), *tra_states.values())
-        device_models.resolve_indel_multi_compact(del_state)
-        device_models.resolve_indel_multi_compact(ins_state)
-        inv_states = {c: device_models.resolve_pair_compact(s)
-                      for c, s in inv_states.items()}
-        dup_states = {c: device_models.resolve_pair_compact(s)
-                      for c, s in dup_states.items()}
-        tra_states = {c: device_models.resolve_tra_compact(s)
-                      for c, s in tra_states.items()}
-        device_models.prefetch_to_host(
-            del_state, ins_state, *inv_states.values(),
-            *dup_states.values(), *tra_states.values())
-        del_res = device_models.resolve_indel_multi_finish(
-            del_state, cfg.diff_ratio_merging_DEL, min_sup5,
-            cfg.remain_reads_ratio, action, need_names=cfg.report_readid)
-        ins_res = device_models.resolve_indel_multi_finish(
-            ins_state, cfg.diff_ratio_merging_INS, min_sup5,
-            cfg.remain_reads_ratio, action, need_names=cfg.report_readid)
-        for (t, c), res in early_res.items():
-            (del_res if t == "DEL" else ins_res)[c] = res
+            ins_state = device_models.resolve_indel_multi_start(
+                [(c, s) for c, s in sig["INS"].items()
+                 if ("INS", c) not in early_res], True, cfg.min_support,
+                cfg.max_cluster_bias_INS, device,
+                early={c: h for (t, c), h in early_k.items() if t == "INS"},
+                **shard)
+
+            def pair_state(svtype, chrom, sigs, is_inv, bias):
+                # reuse the streaming decode's early pair program (already
+                # compacted and copying to the host) when it validated
+                h = early_k.get((svtype, chrom))
+                if h is not None:
+                    return ("pending", h)
+                return device_models.resolve_pair_start(
+                    sigs, is_inv, cfg.min_support, bias, device, **shard)
+
+            inv_states = {
+                chrom: pair_state("INV", chrom, sigs, True,
+                                  cfg.max_cluster_bias_INV)
+                for chrom, sigs in sig["INV"].items()}
+            dup_states = {
+                chrom: pair_state("DUP", chrom, sigs, False,
+                                  cfg.max_cluster_bias_DUP)
+                for chrom, sigs in sig["DUP"].items()}
+            tra_states = {
+                chrom: device_models.resolve_tra_start(
+                    sigs, cfg.min_support, cfg.max_cluster_bias_TRA, device,
+                    **shard)
+                for chrom, sigs in sig["TRA"].items()}
+            device_models.prefetch_counts(
+                del_state, ins_state, *inv_states.values(),
+                *dup_states.values(), *tra_states.values())
+            device_models.resolve_indel_multi_compact(del_state)
+            device_models.resolve_indel_multi_compact(ins_state)
+            inv_states = {c: device_models.resolve_pair_compact(s)
+                          for c, s in inv_states.items()}
+            dup_states = {c: device_models.resolve_pair_compact(s)
+                          for c, s in dup_states.items()}
+            tra_states = {c: device_models.resolve_tra_compact(s)
+                          for c, s in tra_states.items()}
+            device_models.prefetch_to_host(
+                del_state, ins_state, *inv_states.values(),
+                *dup_states.values(), *tra_states.values())
+        with trace.span("resolve.indel"):
+            del_res = device_models.resolve_indel_multi_finish(
+                del_state, cfg.diff_ratio_merging_DEL, min_sup5,
+                cfg.remain_reads_ratio, action, need_names=cfg.report_readid)
+            ins_res = device_models.resolve_indel_multi_finish(
+                ins_state, cfg.diff_ratio_merging_INS, min_sup5,
+                cfg.remain_reads_ratio, action, need_names=cfg.report_readid)
+            for (t, c), res in early_res.items():
+                (del_res if t == "DEL" else ins_res)[c] = res
         cover_fn = (make_sharded_cover(shard["n_shards"], devices)
                     or functools.partial(cover_counts_cuda, device=device))
     else:
         def rows_of(sigs):
             # native columnar stream -> resolver tuple rows
             return sigs.tuples() if hasattr(sigs, "tuples") else sigs
-        del_res = {
-            chrom: host_models.resolve_del(
-                rows_of(sigs), chrom, cfg.min_support,
-                cfg.diff_ratio_merging_DEL, cfg.max_cluster_bias_DEL,
-                min_sup5, cfg.remain_reads_ratio, action, names=names)
-            for chrom, sigs in sig["DEL"].items()}
-        ins_res = {
-            chrom: host_models.resolve_ins(
-                rows_of(sigs), chrom, cfg.min_support,
-                cfg.diff_ratio_merging_INS, cfg.max_cluster_bias_INS,
-                min_sup5, cfg.remain_reads_ratio, action, names=names)
-            for chrom, sigs in sig["INS"].items()}
+        with trace.span("resolve.indel"):
+            del_res = {
+                chrom: host_models.resolve_del(
+                    rows_of(sigs), chrom, cfg.min_support,
+                    cfg.diff_ratio_merging_DEL, cfg.max_cluster_bias_DEL,
+                    min_sup5, cfg.remain_reads_ratio, action, names=names)
+                for chrom, sigs in sig["DEL"].items()}
+            ins_res = {
+                chrom: host_models.resolve_ins(
+                    rows_of(sigs), chrom, cfg.min_support,
+                    cfg.diff_ratio_merging_INS, cfg.max_cluster_bias_INS,
+                    min_sup5, cfg.remain_reads_ratio, action, names=names)
+                for chrom, sigs in sig["INS"].items()}
         cover_fn = None
-    inv_res, dup_res = {}, {}
-    for chrom, sigs in sig["INV"].items():
-        if use_device:
-            inv_res[chrom] = device_models.resolve_pair_finish(
-                inv_states[chrom], sigs, True, chrom, cfg.min_support,
-                cfg.max_cluster_bias_INV, cfg.min_size, cfg.max_size,
-                action, names=names)
-        else:
-            inv_res[chrom] = host_models.resolve_inv(
-                sigs, chrom, cfg.min_support, cfg.max_cluster_bias_INV,
-                cfg.min_size, cfg.max_size, action, names=names)
-    for chrom, sigs in sig["DUP"].items():
-        if use_device:
-            dup_res[chrom] = device_models.resolve_pair_finish(
-                dup_states[chrom], sigs, False, chrom, cfg.min_support,
-                cfg.max_cluster_bias_DUP, cfg.min_size, cfg.max_size,
-                action, names=names)
-        else:
-            dup_res[chrom] = host_models.resolve_dup(
-                sigs, chrom, cfg.min_support, cfg.max_cluster_bias_DUP,
-                cfg.min_size, cfg.max_size, action, names=names)
+    with trace.span("resolve.pair"):
+        inv_res, dup_res = {}, {}
+        for chrom, sigs in sig["INV"].items():
+            if use_device:
+                inv_res[chrom] = device_models.resolve_pair_finish(
+                    inv_states[chrom], sigs, True, chrom, cfg.min_support,
+                    cfg.max_cluster_bias_INV, cfg.min_size, cfg.max_size,
+                    action, names=names)
+            else:
+                inv_res[chrom] = host_models.resolve_inv(
+                    sigs, chrom, cfg.min_support, cfg.max_cluster_bias_INV,
+                    cfg.min_size, cfg.max_size, action, names=names)
+        for chrom, sigs in sig["DUP"].items():
+            if use_device:
+                dup_res[chrom] = device_models.resolve_pair_finish(
+                    dup_states[chrom], sigs, False, chrom, cfg.min_support,
+                    cfg.max_cluster_bias_DUP, cfg.min_size, cfg.max_size,
+                    action, names=names)
+            else:
+                dup_res[chrom] = host_models.resolve_dup(
+                    sigs, chrom, cfg.min_support, cfg.max_cluster_bias_DUP,
+                    cfg.min_size, cfg.max_size, action, names=names)
     # TRA resolution happens BEFORE the cover pass so its genotype
     # windows ride the same kernel launch (candidates and logs still emit
     # in the reference's DEL, INS, INV, DUP, TRA order below)
     tra_batch = action and use_device and names is not None
     tra_res: Dict[str, tuple] = {}
     tra_out: Dict[str, list] = {}
-    for chrom, sigs_t in sig["TRA"].items():
-        if use_device:
-            jobs_t: Optional[list] = [] if tra_batch else None
-            tra_out[chrom] = device_models.resolve_tra_finish(
-                tra_states.get(chrom), sigs_t, chrom, cfg.min_support,
-                cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
-                store.read_tables, store.chrom_lengths, action,
-                cfg.gt_round, names=names, jobs_out=jobs_t)
-            if tra_batch:
-                tra_res[chrom] = (tra_out[chrom], jobs_t)
-        else:
-            tra_out[chrom] = host_models.resolve_tra(
-                sigs_t, chrom, cfg.min_support,
-                cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
-                store.read_tables, store.chrom_lengths, action,
-                cfg.gt_round, names=names)
+    tra_finalize = None
+    tra_blocks = []
+    with trace.span("resolve.tra"):
+        for chrom, sigs_t in sig["TRA"].items():
+            if use_device:
+                jobs_t: Optional[list] = [] if tra_batch else None
+                tra_out[chrom] = device_models.resolve_tra_finish(
+                    tra_states.get(chrom), sigs_t, chrom, cfg.min_support,
+                    cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
+                    store.read_tables, store.chrom_lengths, action,
+                    cfg.gt_round, names=names, jobs_out=jobs_t)
+                if tra_batch:
+                    tra_res[chrom] = (tra_out[chrom], jobs_t)
+            else:
+                tra_out[chrom] = host_models.resolve_tra(
+                    sigs_t, chrom, cfg.min_support,
+                    cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
+                    store.read_tables, store.chrom_lengths, action,
+                    cfg.gt_round, names=names)
+        if tra_batch:
+            tra_blocks, tra_finalize = _tra_cover_prepare(tra_res, store,
+                                                          cfg)
     # ONE read-support cover pass for every batched SV type and
     # chromosome: the census uploads once per flush and the kernel
     # launches once per flush
@@ -1324,15 +1387,12 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
     if action and use_device:
         specs.append(_two_windows_cover_spec(inv_res, (5, 6, 8, 9, 10)))
         specs.append(_two_windows_cover_spec(dup_res, (5, 6, 7, 8, 9)))
-    tra_finalize = None
-    tra_blocks = []
-    if tra_batch:
-        tra_blocks, tra_finalize = _tra_cover_prepare(tra_res, store, cfg)
     if specs or tra_blocks:
         _batched_cover_multi(specs, store, cover_fn,
                              extra_blocks=tra_blocks)
     if tra_finalize is not None:
-        tra_finalize()
+        with trace.span("resolve.tra"):
+            tra_finalize()
     for res, svtype in ((del_res, "DEL"), (ins_res, "INS")):
         for chrom in sig[svtype]:
             cands, jobs = res[chrom]
@@ -1410,38 +1470,70 @@ def _gather_results(results: Dict[str, List], info: dict = None):
     return merged
 
 
-def _profiled_resolve(store, cfg: Config, device, shard_devices):
-    """resolve_all under torch.profiler (CPU activity, plus CUDA on a
-    CUDA device); the trace goes to ``work_dir/torch_trace/resolve.json``
-    (chrome trace format). Returns (results, trace path)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
+def _write_profile(cfg: Config, prof, recorded: dict) -> str:
+    """The call's profile, ``work_dir/torch_trace/run.json`` (chrome trace
+    format): ``prof``'s device operations (None on a CPU device, which
+    has none) with the spans of ``recorded`` (``stats["trace"]``) merged
+    in as host events. Returns the path."""
     trace_dir = os.path.join(cfg.work_dir, "torch_trace")
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        results = resolve_all(store, cfg, device, shard_devices)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    path = os.path.join(trace_dir, "resolve.json")
-    prof.export_chrome_trace(path)
+    path = os.path.join(trace_dir, "run.json")
+    device_path = None
+    if prof is not None:
+        device_path = os.path.join(trace_dir, "device.json")
+        prof.export_chrome_trace(device_path)
+    trace.merge_chrome_trace(recorded, path, device_path)
+    if device_path is not None:
+        os.remove(device_path)
     log.info("Profiler trace written to %s" % path)
-    return results, path
+    return path
+
+
+def _span_stats(spans: List[dict]) -> dict:
+    """The stage times of a call, from its spans: ``decode_s`` (the
+    decode span, which holds the store), ``resolve_s``, ``emit_s``,
+    ``total_s`` (the call) and, for a streaming decode, its split:
+    ``native_s`` (decode start to the end of ``decode.join``, the
+    decoder's join and free), ``store_s`` (the rest of decode: the
+    exchange of a multi-process decode, the sortedness check, the store,
+    attaching the early work),
+    ``overlap_work_s`` / ``done_tail_s`` (the poll loop's dispatch and
+    tail spans before / in the DONE batch) and ``tail_windows`` (the
+    genotype windows the mid-decode tails counted on the host)."""
+    out = dict(decode_s=trace.seconds(spans, "decode"),
+               resolve_s=trace.seconds(spans, "resolve"),
+               emit_s=trace.seconds(spans, "emit"),
+               total_s=trace.seconds(spans, "call"))
+    joins = [s for s in spans if s["name"] == "decode.join"]
+    decode = [s for s in spans if s["name"] == "decode"]
+    if joins and decode:
+        out.update(
+            native_s=(joins[0]["t1_ns"] - decode[0]["t0_ns"]) / 1e9,
+            store_s=(decode[0]["t1_ns"] - joins[0]["t1_ns"]) / 1e9,
+            overlap_work_s=sum(trace.seconds(spans, n, done=0) for n in
+                               ("decode.dispatch", "decode.tail")),
+            done_tail_s=sum(trace.seconds(spans, n, done=1) for n in
+                            ("decode.dispatch", "decode.tail")),
+            tail_windows=sum(s["counters"]["windows"] for s in spans
+                             if s["name"] == "decode.tail"))
+    return out
 
 
 def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
                  device=None, shard_devices=None) -> dict:
     """Full discovery run on ``device`` (CUDA unless the caller asks for
-    the CPU); returns stage timing + counters. Under ``cfg.distributed``
+    the CPU); returns stage timing + counters, and ``trace``: the call's
+    spans (``utils/trace.py``). Under ``cfg.distributed``
     the process joins the run's process group first (with more than one
     process): it resolves only its chromosome bucket, and a process
     other than 0 returns after the result exchange, with ``n_calls`` 0
     and no VCF written. ``shard_devices``: the devices of a
     ``--n_shards`` run in place of :func:`pmesh.pick_devices` (a list
     may repeat a device); the stats name the devices used
-    (``shard_devices``, [] when the serial programs ran)."""
+    (``shard_devices``, [] when the serial programs ran). ``--profile``
+    (with a work dir) writes the call's trace, ``profile_trace``: the
+    device's operations (``torch.profiler``, CUDA activity only) and
+    the spans."""
     argv = argv if argv is not None else []
     device = resolve_device(device)
     devices = _shard_plan(cfg, device, shard_devices)
@@ -1477,23 +1569,39 @@ def run_pipeline(cfg: Config, argv: Optional[List[str]] = None,
         from cutesv_tpu_torch.parallel import distributed as dist
         dist_active = dist.init_distributed(
             cfg.coordinator, cfg.num_processes, cfg.process_id)
+    profiling = bool(cfg.profile and cfg.work_dir)
+    prof = None
+    if profiling and device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
     try:
-        return _run_stages(cfg, argv, device, devices, ckpt, dist_active)
+        with trace.recording() as rec:
+            with trace.span("call"):
+                stats = _run_stages(cfg, argv, device, devices, ckpt,
+                                    dist_active)
     finally:
+        if prof is not None:
+            torch.cuda.synchronize(device)
+            prof.stop()
         if dist_active:
             # gloo's threads must stop before the interpreter exits (a
             # group left to the exit's destructors can abort the process)
             dist.shutdown_distributed()
+    stats.update(_span_stats(rec.spans))
+    stats["trace"] = rec.export()
+    if profiling:
+        stats["profile_trace"] = _write_profile(cfg, prof, stats["trace"])
+    return stats
 
 
 def _run_stages(cfg: Config, argv: List[str], device, devices,
                 ckpt: Optional[str], dist_active: bool) -> dict:
     """Decode, resolve and emit of :func:`run_pipeline`, after its input
-    checks; ``devices``: the shard device list (None: serial);
-    ``dist_active``: this process is one of a multi-process run's
-    group."""
+    checks, each stage a span (``decode``, ``resolve``, ``emit``);
+    ``devices``: the shard device list (None: serial); ``dist_active``:
+    this process is one of a multi-process run's group."""
     stats = dict(shard_devices=[str(d) for d in devices or []])
-    t0 = time.time()
     # open + index the reference FASTA on a side thread: the emitter needs
     # it only after resolve, and the open cost is page-in/IO wait that
     # hides completely under the decode stage
@@ -1506,21 +1614,21 @@ def _run_stages(cfg: Config, argv: List[str], device, devices,
             fasta_box.append(exc)
 
     fasta_thread = threading.Thread(target=_open_fasta, daemon=True)
-    fasta_thread.start()
-    if cfg.resume and ckpt and os.path.exists(ckpt):
-        log.info("Resuming from signature checkpoint %s" % ckpt)
-        store = sigstore.load_store(cfg.work_dir)
-        stats["decoder"] = "checkpoint"
-        candidates = None
-        references = [(c, l) for c, l in store.chrom_lengths.items()]
-        n_records = -1
-    else:
-        store, candidates, references, n_records = decode_bam(cfg, device)
-        stats.update(store.decode_breakdown)
-    stats["decode_s"] = time.time() - t0
+    with trace.span("decode"):
+        fasta_thread.start()
+        if cfg.resume and ckpt and os.path.exists(ckpt):
+            log.info("Resuming from signature checkpoint %s" % ckpt)
+            store = sigstore.load_store(cfg.work_dir)
+            stats["decoder"] = "checkpoint"
+            candidates = None
+            references = [(c, l) for c, l in store.chrom_lengths.items()]
+            n_records = -1
+        else:
+            store, candidates, references, n_records = decode_bam(cfg,
+                                                                  device)
+            stats.update(store.decode_breakdown)
     stats["n_records"] = n_records
-    stats["n_sigs"] = {t: sum(len(v) for v in store.sigs[t].values())
-                       for t in sigstore.SVTYPES}
+    stats["n_sigs"] = _n_sigs(store)
     log.info("Decoded %d records; signatures: %s"
              % (n_records, " ".join("%s=%d" % kv
                                     for kv in stats["n_sigs"].items())))
@@ -1546,40 +1654,33 @@ def _run_stages(cfg: Config, argv: List[str], device, devices,
                                      lambda c: assign.get(c, 0) == k)
         stats["chroms_resolved"] = sorted(c for c, b in assign.items()
                                           if b == k)
-    t1 = time.time()
-    if cfg.profile and cfg.work_dir:
-        results, stats["profile_trace"] = _profiled_resolve(store, cfg,
-                                                            device, devices)
-    else:
+    with trace.span("resolve"):
         results = resolve_all(store, cfg, device, devices)
-    if dist_active:
-        gather: dict = {}
-        results = _gather_results(results, gather)
-        stats.update(gather_mb=gather["local_mb"],
-                     gather_total_mb=gather["total_mb"],
-                     gather_s=gather["seconds"])
-        if results is None:  # not the emitter: done after the exchange
-            stats["resolve_s"] = time.time() - t1
-            stats["n_calls"] = 0
-            stats["emit_s"] = 0.0
-            stats["total_s"] = time.time() - t0
-            return stats
-    stats["resolve_s"] = time.time() - t1
+        if dist_active:
+            gather: dict = {}
+            results = _gather_results(results, gather)
+            stats.update(gather_mb=gather["local_mb"],
+                         gather_total_mb=gather["total_mb"],
+                         gather_s=gather["seconds"])
+    if results is None:  # not the emitter: done after the exchange
+        stats["n_calls"] = 0
+        return stats
     stats["n_calls"] = sum(len(v) for v in results.values())
 
-    t2 = time.time()
-    fasta_thread.join()
-    fasta = fasta_box[0]
-    if isinstance(fasta, BaseException):
-        raise fasta
-    per_chrom = {}
-    for chrom, rows in results.items():
-        if chrom not in fasta:
-            raise KeyError(
-                "No corresponding contig in reference with %s." % chrom)
-        per_chrom[chrom] = vcf.format_chrom_records(
-            cfg, rows, fasta.fetch_lazy(chrom), chrom)
-    vcf.write_vcf(cfg.output, cfg, per_chrom, references, argv)
-    stats["emit_s"] = time.time() - t2
-    stats["total_s"] = time.time() - t0
+    with trace.span("emit"):
+        fasta_thread.join()
+        fasta = fasta_box[0]
+        if isinstance(fasta, BaseException):
+            raise fasta
+        per_chrom = {}
+        with trace.span("emit.format"):
+            for chrom, rows in results.items():
+                if chrom not in fasta:
+                    raise KeyError(
+                        "No corresponding contig in reference with %s."
+                        % chrom)
+                per_chrom[chrom] = vcf.format_chrom_records(
+                    cfg, rows, fasta.fetch_lazy(chrom), chrom)
+        with trace.span("emit.write"):
+            vcf.write_vcf(cfg.output, cfg, per_chrom, references, argv)
     return stats

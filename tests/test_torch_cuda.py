@@ -206,9 +206,9 @@ def test_alltypes_cram_on_cuda_equals_cpu(card, tmp_path, monkeypatch):
 
 def test_profile_on_cuda_traces_the_cover_kernel(card, tmp_path,
                                                  monkeypatch):
-    """--profile on the card: the torch.profiler trace of the resolve
-    stage holds the cover kernel's launch, and the body equals the CPU
-    run's."""
+    """--profile on the card: the whole call's trace holds the cover
+    kernel's device operation and the program's spans (the decoder's
+    walk, the cover launch), and the body equals the CPU run's."""
     import json
 
     monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
@@ -232,7 +232,50 @@ def test_profile_on_cuda_traces_the_cover_kernel(card, tmp_path,
         events = json.load(fh)["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("cover_count" in k for k in kernels), sorted(set(kernels))
+    spans = {e["name"] for e in events if e.get("cat") == "program_span"}
+    assert {"decode.walk", "cover.launch"} <= spans, sorted(spans)
     assert bodies["cuda"] == bodies["cpu"]
+
+
+def test_cover_kernel_starts_inside_a_flush_span(card, tmp_path,
+                                                 monkeypatch):
+    """The program's spans and the profiler's device operations share a
+    clock: each cover kernel of a call on the card, found by the name its
+    cover.launch span gives it, starts inside one of the call's
+    genotype.flush spans, whose launches it counts, up to the offset the
+    profiler's device clock can have from the host's for a whole session
+    (1.9 and 4.2 ms in 2 of 40 sessions on an H100 machine; a flush lasts
+    ~1 ms and the call's other stages launch no cover kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
+    bed = str(tmp_path / "grid.bed")
+    chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
+    info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
+                  coverage=20, seed=1)
+    cfg = Config(input=info["bam"], reference=info["fa"],
+                 output=str(tmp_path / "out.vcf"),
+                 work_dir=str(tmp_path / "w"), genotype=True, min_support=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stats = run_pipeline(cfg, ["x"], device=card)
+        torch.cuda.synchronize()
+    spans = stats["trace"]["spans"]
+    named = {s["counters"]["kernel"] for s in spans
+             if s["name"] == "cover.launch"}
+    assert named == {cover.KERNEL}, named
+    kernels = [ev.start_ns() for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA
+               and cover.KERNEL in ev.name()]
+    flushes = [(s["t0_ns"], s["t1_ns"], s["counters"]) for s in spans
+               if s["name"] == "genotype.flush"]
+    assert kernels and flushes, (kernels, flushes)
+    assert sum(c["launches"] for _, _, c in flushes) == len(kernels), \
+        (kernels, flushes)
+    skew = 10_000_000  # ns
+    for t in kernels:
+        assert any(t0 - skew <= t <= t1 + skew for t0, t1, _ in flushes), \
+            (t, flushes)
 
 
 def test_sharded_run_on_one_card_equals_serial(card, tmp_path, monkeypatch):

@@ -17,8 +17,9 @@ JAX package, on the CPU.
   host engine, a CRAM, and a BAM with the device engine and forced
   mid-decode tails; ``--num_processes 1`` equals the plain run; a decode
   failure inside one process's range ends both processes.
-* ``--profile`` writes ``torch_trace/resolve.json`` and leaves the body
-  unchanged.
+* ``--profile`` writes the whole call's ``torch_trace/run.json`` (the
+  program's spans, from the decoder's walk to the cover launch) and
+  leaves the body unchanged.
 All comparisons are exact.
 """
 import json
@@ -653,8 +654,10 @@ def test_profile_on_cpu_writes_trace_and_keeps_the_body(tmp_path):
     stats = tcli.run(base + [str(out), str(wd)] + extra
                      + ["--device", "cpu", "--profile"])
     assert _body(out) == want
-    trace = wd / "torch_trace" / "resolve.json"
+    trace = wd / "torch_trace" / "run.json"
     assert stats["profile_trace"] == str(trace)
     with open(trace) as fh:
         events = json.load(fh)["traceEvents"]
-    assert any(e.get("cat") == "cpu_op" for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "program_span"}
+    assert {"call", "decode", "decode.walk", "genotype.flush",
+            "cover.launch", "emit"} <= spans, sorted(spans)

@@ -327,7 +327,7 @@ def test_sharded_pipeline_profile_equals_jax(tmp_path):
     assert got == want
     assert len([l for l in got.splitlines() if not l.startswith("#")]) == 1
     assert stats["shard_devices"] == ["cpu"] * 8
-    assert (tmp_path / "wport_prof" / "torch_trace" / "resolve.json").exists()
+    assert (tmp_path / "wport_prof" / "torch_trace" / "run.json").exists()
 
 
 def test_sharded_pipeline_python_decoder_equals_jax(tmp_path, monkeypatch):
