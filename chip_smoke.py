@@ -34,7 +34,16 @@ result line:
          python decoder on cuda. The main path must have streamed and
          launched the cover kernel at least once and at most once per
          1e9-bp flush, the VCF bodies must be equal byte for byte, and
-         >= 99% of the planted sites must be called (type, <= 200 bp)
+         >= 99% of the planted sites must be called (type, <= 200 bp);
+         every run on cuda inflated its BAM's BGZF blocks on the card
+         (none on the host) with one launch of the inflate kernel a batch
+         the decoder handed the card, the main path at least one
+  inflate  the BGZF inflate kernel alone over a batch of 384 blocks (the
+         decoder's batch): the e2e BAM's first blocks (their reads carry
+         no base qualities) and a simulated batch whose reads carry
+         Phred qualities; bare time against its byte floor, zlib on one
+         host core, the batch's pinned copies up and down; its bytes must
+         EQUAL zlib's
   alltypes  writes a VISOR HACk truth bed with a DEL, INS, tandem DUP,
          inversion or reciprocal translocation every 20 kb of a 64 Mb
          window, replays it into a 20x corpus (tools/simulate.py::replay)
@@ -743,8 +752,19 @@ def _drive(tag: str, argv: list, device: str, env: dict,
     core = ""
     if "walk_s" in stats:
         core = (" (decoder walk %.3f s, inflate %.3f core-s, records %.3f "
-                "core-s)" % (stats["walk_s"], stats["inflate_core_s"],
-                             stats["records_core_s"]))
+                "core-s; BGZF blocks %d on the card in %d launches, %d on "
+                "the host)"
+                % (stats["walk_s"], stats["inflate_core_s"],
+                   stats["records_core_s"], stats["blocks_card"],
+                   stats["launches_card"], stats["blocks_host"]))
+        if device.startswith("cuda") and stats["blocks_host"]:
+            raise AssertionError("%s: %d BGZF blocks inflated on the host "
+                                 "of a CUDA run" % (tag, stats["blocks_host"]))
+        if stats["launches_card"] != stats["batches_card"] or (
+                stats["blocks_card"] and not stats["launches_card"]):
+            raise AssertionError(
+                "%s: %d inflate kernel launches for %d batches on the card"
+                % (tag, stats["launches_card"], stats["batches_card"]))
     if "sites" in stats:  # force calling
         log("%s: %d sites, %s decoder; decode %.3f s, call %.4f s, emit "
             "%.4f s, total %.2f s; cover launches %d"
@@ -816,6 +836,7 @@ def _check_main(prefix: str, stats: dict, genome_bp: int) -> None:
 
 STAT_KEYS = ("decode_s", "resolve_s", "emit_s", "n_calls", "launches",
              "shape", "walk_s", "inflate_core_s", "records_core_s",
+             "blocks_card", "blocks_host", "batches_card", "launches_card",
              "native_s", "store_s", "overlap_work_s", "done_tail_s",
              "tail_windows", "early_dispatched", "early_kernels",
              "early_tails")
@@ -838,7 +859,11 @@ def phase_e2e(res: dict) -> None:
         raise AssertionError("the default run did not stream, or the "
                              "CUTESV_STREAM_DISPATCH=0 run did")
     _check_main("e2e", main, int(E2E_MB * 1e6))
+    if not main["blocks_card"]:
+        raise AssertionError("the e2e main path inflated no BGZF block on "
+                             "the card")
     res["launches_by_path"] = {"e2e_100mb": main["launches"]}
+    res["inflate_launches_by_path"] = {"e2e_100mb": main["launches_card"]}
     res["corpora"] = {"e2e_100mb": dict(bam=sim["bam"], fa=sim["fa"],
                                         vcf=runs["native_cuda"][0])}
     res["main_shapes"] = {"e2e_100mb": main["shape"]}
@@ -851,6 +876,37 @@ def phase_e2e(res: dict) -> None:
         raise AssertionError("recall %d/%d below 99%%" % (hit, n))
     res["e2e"] = {tag: {k: st[k] for k in STAT_KEYS if k in st}
                   for tag, (_, st) in runs.items()}
+
+
+def phase_inflate(res: dict) -> None:
+    """The BGZF inflate kernel alone over a batch of the decoder's size:
+    the e2e corpus's first 384 blocks (reads without base qualities), and
+    a simulated batch whose reads carry Phred qualities at zlib's default
+    level, cut at the decoder's staging span (``bench_kernels.PHRED``):
+    bare ms against the byte floor, zlib on one host core, the batch's
+    pinned copies up and down (the decoder's floor on the card); its bytes
+    held to zlib's."""
+    from cutesv_tpu_torch.tools import bench_kernels as bk
+
+    dev = torch.device("cuda")
+    rtt = bk.bench_rtt(dev, 8)
+    bam = res["corpora"]["e2e_100mb"]["bam"]
+    for key, kw in (("inflate", dict(path=bam)),
+                    ("inflate_phred", dict(phred=True))):
+        rec = bk.bench_inflate(dev, rtt, 8, **kw)
+        if not rec["equal"]:
+            raise AssertionError("%s: kernel bytes or statuses != zlib's"
+                                 % key)
+        log("%s kernel: %d blocks, %d -> %d bytes; bare %.4f ms (%.4e "
+            "B/s out), byte floor %.5f ms (%s; %.5f of it); zlib on one "
+            "core %.3f ms (%.4e B/s); pinned copies up %.4f ms, down %.4f "
+            "ms; equal to zlib"
+            % (key, rec["blocks"], rec["in_bytes"], rec["out_bytes"],
+               rec["bare_s"] * 1e3, rec["out_bytes_per_s"], rec["bound_ms"],
+               rec["bound_by"], rec["bare_efficiency_vs_bound"],
+               rec["zlib_1core_s"] * 1e3, rec["zlib_out_bytes_per_s"],
+               rec["h2d_s"] * 1e3, rec["d2h_s"] * 1e3))
+        res[key] = rec
 
 
 def phase_alltypes(res: dict) -> None:
@@ -881,6 +937,7 @@ def phase_alltypes(res: dict) -> None:
                                       vcf=runs["native_cuda"][0],
                                       host_vcf=runs["host_engine_cuda"][0])
     res["launches_by_path"]["alltypes"] = main["launches"]
+    res["inflate_launches_by_path"]["alltypes"] = main["launches_card"]
     res["main_shapes"]["alltypes"] = main["shape"]
     recall = alltypes_recall(info["bed"], runs["native_cuda"][0])
     log("alltypes recall (called / planted, type and <= 1 kb; BND per "
@@ -1026,6 +1083,8 @@ def phase_forcecall(res: dict) -> None:
             % (tag, len(disc), json.dumps(share)))
         bodies[tag] = _body(out)
         res["launches_by_path"]["forcecall_" + tag] = stats["launches"]
+        res["inflate_launches_by_path"]["forcecall_" + tag] = \
+            stats["launches_card"]
         res["forcecall"][tag] = dict(
             {k: stats[k] for k in ("sites", "decode_s", "call_s", "emit_s",
                                    "wall_s")}, gt_equal=share)
@@ -1189,6 +1248,17 @@ def phase_distributed(res: dict, mode: str) -> None:
             "process 0's body equals the main path's; launches %s; %.1f s "
             "with the two processes' start" % (tag, launches, wall))
         res["launches_by_path"]["distributed_" + tag] = sum(launches)
+        for k, st in enumerate(stats):
+            if st["blocks_host"] or st["launches_card"] != st[
+                    "batches_card"] or (kind == "bam"
+                                        and not st["launches_card"]):
+                raise AssertionError(
+                    "distributed %s process %d: %d BGZF blocks on the "
+                    "host, %d inflate launches for %d batches on the card"
+                    % (tag, k, st["blocks_host"], st["launches_card"],
+                       st["batches_card"]))
+        res["inflate_launches_by_path"]["distributed_" + tag] = sum(
+            st["launches_card"] for st in stats)
         res["distributed"][tag] = [
             {k: st[k] for k in STAT_KEYS + DIST_KEYS if k in st}
             for st in stats]
@@ -1337,6 +1407,8 @@ def _shard_main_paths(res: dict, two: list) -> None:
         log("shards %s: body equals the main path's; shard devices %s"
             % (tag, stats["shard_devices"]))
         res["launches_by_path"]["shards_" + tag] = stats["launches"]
+        res["inflate_launches_by_path"]["shards_" + tag] = \
+            stats["launches_card"]
         res["main_shapes"]["shards_" + tag] = stats["shape"]
         res["shards"][tag] = {k: stats[k] for k in STAT_KEYS if k in stats}
 
@@ -1756,6 +1828,7 @@ def main() -> int:
     phase_cluster(res)
     phase_pair(res)
     phase_e2e(res)
+    phase_inflate(res)
     phase_alltypes(res)
     phase_cram(res)
     phase_forcecall(res)
@@ -1774,7 +1847,14 @@ def main() -> int:
         replaces="cutesv_tpu/ops/pallas_sweep.py:28",
         launches=res["launches_by_path"]["alltypes"],
         launches_by_path=res["launches_by_path"], equal=True,
-        library_ms=None, shape=[K1_WINDOWS, K1_READS], **res["k1"])],
+        library_ms=None, shape=[K1_WINDOWS, K1_READS], **res["k1"]),
+        dict(name="bgzf_inflate", route="cuda",
+             source="cutesv_tpu_torch/csrc/bgzf_inflate.cu", replaces=None,
+             launches=res["inflate_launches_by_path"]["e2e_100mb"],
+             launches_by_path=res["inflate_launches_by_path"],
+             blocks_on_card=res["e2e"]["native_cuda"]["blocks_card"],
+             library_ms=None, shape=[res["inflate"]["blocks"]],
+             phred_batch=res["inflate_phred"], **res["inflate"])],
         "cluster_ms": res["cluster_ms"],
         "pair_cluster_ms": res["pair_cluster_ms"], "e2e": res["e2e"],
         "alltypes": res["alltypes"],

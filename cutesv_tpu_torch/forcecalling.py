@@ -473,7 +473,8 @@ def _overlap_cover_counts(windows, census):
 def force_call(cfg, argv, store=None, device=None) -> dict:
     """Run force calling; returns the per-chromosome rows, the header
     references, the record count, ``decoder`` (which decoder ran, or
-    "store") and the decode and call seconds. ``store`` injects a
+    "store"), the decode's ``breakdown`` (``decode_breakdown``; empty for
+    an injected store) and the decode and call seconds. ``store`` injects a
     prebuilt SigStore (differential tests); decoded from cfg.input on
     ``device`` (CUDA unless the caller asks for the CPU) otherwise."""
     t0 = time.time()
@@ -482,10 +483,12 @@ def force_call(cfg, argv, store=None, device=None) -> dict:
 
         store, _, references, n_records = decode_bam(
             cfg, resolve_device(device))
-        decoder = store.decode_breakdown["decoder"]
+        breakdown = store.decode_breakdown
+        decoder = breakdown["decoder"]
     else:
         references = list(store.chrom_lengths.items())
         n_records = -1  # not decoded here (same sentinel as --resume)
+        breakdown = {}
         decoder = "store"
     t1 = time.time()
     names = store.names
@@ -614,8 +617,8 @@ def force_call(cfg, argv, store=None, device=None) -> dict:
         result[chrom] = out_rows
         log.info("Finished calling %s." % chrom)
     return dict(result=result, references=references,
-                n_records=n_records, decoder=decoder, decode_s=t1 - t0,
-                call_s=time.time() - t1)
+                n_records=n_records, decoder=decoder, breakdown=breakdown,
+                decode_s=t1 - t0, call_s=time.time() - t1)
 
 
 # ---------------------------------------------------------------------------
@@ -684,10 +687,11 @@ def generate_pvcf_lines(cfg, rows, ref_chrom: str) -> List[str]:
 def run_force_calling(cfg, argv, device=None) -> dict:
     """Force-call ``cfg.Ivcf`` against ``cfg.input`` and write the VCF;
     the decode runs on ``device`` (CUDA unless the caller asks for the
-    CPU). Returns the site count, ``decoder`` and the decode, call and
-    emit seconds. Under ``--distributed`` each process makes the same
-    whole-file force call, as in the JAX package: no process group is
-    joined, so the decode is plain and unsharded."""
+    CPU). Returns the decode's breakdown (``decode_breakdown``) with the
+    site count, ``decoder`` and the decode, call and emit seconds. Under
+    ``--distributed`` each process makes the same whole-file force call,
+    as in the JAX package: no process group is joined, so the decode is
+    plain and unsharded."""
     from cutesv_tpu_torch.io.fasta import FastaFile
 
     if not os.path.isfile(cfg.Ivcf):
@@ -709,6 +713,6 @@ def run_force_calling(cfg, argv, device=None) -> dict:
                 fh.write(line)
     sites = sum(len(v) for v in out["result"].values())
     log.info("Force calling finished: %d sites" % sites)
-    return dict(sites=sites, decoder=out["decoder"],
+    return dict(out["breakdown"], sites=sites, decoder=out["decoder"],
                 decode_s=out["decode_s"], call_s=out["call_s"],
                 emit_s=time.time() - t2, n_records=out["n_records"])

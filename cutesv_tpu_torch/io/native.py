@@ -11,6 +11,22 @@ take the ``byte_range`` of a sharded (``--distributed``) decode;
 ``g++`` at first use (``ops/build.py::decoder_library``); a failed build
 or load raises, and nothing here falls back to the Python reader.
 
+Where a BAM's BGZF blocks inflate follows the ``device`` the decode is
+given: on a CUDA device, on the card; on a CPU device or none, in the
+decoder's zlib threads. A CRAM's blocks use zlib either way. The CUDA
+library exports two entry points for this: ``cutesv_inflate_launch`` (one
+kernel launch over device buffers, ``ops/inflate.py::inflate_tensors``)
+and ``cutesv_inflate_create``, which makes the decoder's back end on a
+device: a ``CardInflate`` table of C functions (``csrc/card_inflate.h``:
+acquire, submit a batch, fetch it into a pinned slot, wait, release, and
+the launches made) over buffers made once per process and device
+(``ops/inflate.py::card_table``). Its address goes to
+``bamdecode_run``/``bamdecode_start``; a block that does not inflate to
+its size fails the decode with status 5. The decode reports how many
+blocks each back end inflated (``blocks_card``, ``blocks_host``) and, on
+the card, how many batches the decoder handed the back end and how many
+kernel launches the back end made (``batches_card``, ``launches_card``).
+
 Field ids are kept in lockstep with the switch in bamdecode.cpp.
 """
 from __future__ import annotations
@@ -20,6 +36,7 @@ from dataclasses import dataclass
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from cutesv_tpu_torch.ops import build
 
@@ -37,7 +54,7 @@ def get_lib() -> ctypes.CDLL:
     lib.bamdecode_run.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(i64),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(i64),
-        ctypes.POINTER(i64), i64]
+        ctypes.POINTER(i64), i64, vp]
     lib.bamdecode_status.restype = ctypes.c_int
     lib.bamdecode_status.argtypes = [vp]
     lib.bamdecode_n_records.restype = i64
@@ -49,6 +66,8 @@ def get_lib() -> ctypes.CDLL:
     for fn in ("bamdecode_walk_start_ns", "bamdecode_walk_end_ns"):
         getattr(lib, fn).restype = i64
         getattr(lib, fn).argtypes = [vp]
+    lib.bamdecode_blocks.restype = None
+    lib.bamdecode_blocks.argtypes = [vp] + [ctypes.POINTER(i64)] * 4
     lib.bamdecode_err.restype = ctypes.c_char_p
     lib.bamdecode_err.argtypes = [vp]
     lib.bamdecode_get.restype = ctypes.c_int
@@ -177,6 +196,12 @@ class NativeDecode:
     # (zlib spans) and record-parse loops
     inflate_core_s: float = 0.0
     records_core_s: float = 0.0
+    # BGZF blocks inflated on the card and by the zlib threads; on the
+    # card, the batches the decoder handed it and the kernel launches made
+    blocks_card: int = 0
+    blocks_host: int = 0
+    batches_card: int = 0
+    launches_card: int = 0
 
     def ins_seq(self, i: int) -> str:
         off = self.arrays["ins_seq_off"][i]
@@ -259,6 +284,15 @@ def _call_args(cfg, bed_ids, reference, byte_range=None):
     return params, ref_arg, bc_p, bs_p, be_p, n_bed, keepalive
 
 
+def _card(device):
+    """The card back end for a CUDA ``device`` (a BAM's BGZF blocks then
+    inflate on the card), None (zlib threads) for a CPU device or none."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    from cutesv_tpu_torch.ops import inflate
+    return inflate.card_table(device)
+
+
 def _check_status(status: int, path: str, detail: str = ""):
     if status == 10:
         raise NativeUnsupported(
@@ -278,6 +312,10 @@ def _check_status(status: int, path: str, detail: str = ""):
 
 
 def _extract(lib, handle, path: str) -> NativeDecode:
+    blocks = [ctypes.c_int64() for _ in range(4)]
+    lib.bamdecode_blocks(handle, *map(ctypes.byref, blocks))
+    blocks_card, blocks_host, batches_card, launches_card = (
+        b.value for b in blocks)
     name_blob = _fetch(lib, handle, 0)
     name_off = _fetch(lib, handle, 1)
     # one whole-blob decode + str slicing; BAM qnames are ASCII by spec,
@@ -307,11 +345,14 @@ def _extract(lib, handle, path: str) -> NativeDecode:
                         inflate_core_s=float(
                             lib.bamdecode_inflate_core_seconds(handle)),
                         records_core_s=float(
-                            lib.bamdecode_records_core_seconds(handle)))
+                            lib.bamdecode_records_core_seconds(handle)),
+                        blocks_card=blocks_card, blocks_host=blocks_host,
+                        batches_card=batches_card,
+                        launches_card=launches_card)
 
 
 def decode(path: str, cfg, bed_ids=None, reference=None,
-           byte_range=None) -> NativeDecode:
+           byte_range=None, device=None) -> NativeDecode:
     """Run the native decoder over the file (BAM; CRAM when ``reference``
     names the FASTA). ``bed_ids``: optional (chr_id, start, end) int
     arrays in header chrom-id space (already ±1000-padded).
@@ -321,12 +362,13 @@ def decode(path: str, cfg, bed_ids=None, reference=None,
     at the offset is below the uncompressed length, a CRAM the
     containers inside the compressed length (0 = unbounded, -1 = none);
     the result's ``first_u``/``next_u`` are the range's boundary
-    offsets for the cross-shard agreement check."""
+    offsets for the cross-shard agreement check. ``device``: a CUDA
+    device inflates a BAM's BGZF blocks on the card (:func:`_card`)."""
     lib = get_lib()
     params, ref_arg, bc_p, bs_p, be_p, n_bed, _ka = _call_args(
         cfg, bed_ids, reference, byte_range)
     handle = lib.bamdecode_run(path.encode(), ref_arg, params, bc_p, bs_p,
-                               be_p, n_bed)
+                               be_p, n_bed, _card(device))
     try:
         _check_status(lib.bamdecode_status(handle), path,
                       _err_detail(lib, handle))
@@ -352,16 +394,17 @@ class StreamingDecode:
     DONE = 2 ** 31 - 1  # INT32_MAX progress sentinel
 
     def __init__(self, path: str, cfg, bed_ids=None, reference=None,
-                 byte_range=None):
+                 byte_range=None, device=None):
         """``reference``: the FASTA of a CRAM input (None for a BAM);
-        ``byte_range``: as for :func:`decode`."""
+        ``byte_range``, ``device``: as for :func:`decode`."""
         self._lib = get_lib()
         self._path = path
         params, ref_arg, bc_p, bs_p, be_p, n_bed, ka = _call_args(
             cfg, bed_ids, reference, byte_range)
         self._keepalive = ka
         self._handle = self._lib.bamdecode_start(
-            path.encode(), ref_arg, params, bc_p, bs_p, be_p, n_bed)
+            path.encode(), ref_arg, params, bc_p, bs_p, be_p, n_bed,
+            _card(device))
 
     def poll(self) -> int:
         """refID currently being decoded (chroms below it are complete

@@ -1,13 +1,22 @@
 // bamdecode: native BAM -> SV-signature tensor decoder.
 //
 // Host-side hot path of the cutesv-tpu engine (SURVEY §7 L0): streams a
-// BGZF/BAM file once (multithreaded block inflate via zlib, bounded
-// memory), walks every alignment record, and reproduces the reference
-// caller's stage-1 signature semantics (parse_read cuteSV:606-681,
-// generate_combine_sigs cuteSV:515-575, organize_split_signal
-// cuteSV:483-513, analysis_split_read cuteSV:190-464) into dense
-// structure-of-arrays outputs ready for numpy/PyTorch. Behavior is
-// golden-tested record-for-record against cutesv_tpu_torch/extract.py.
+// BGZF/BAM file once (bounded memory), walks every alignment record, and
+// reproduces the reference caller's stage-1 signature semantics
+// (parse_read cuteSV:606-681, generate_combine_sigs cuteSV:515-575,
+// organize_split_signal cuteSV:483-513, analysis_split_read
+// cuteSV:190-464) into dense structure-of-arrays outputs ready for
+// numpy/PyTorch. Behavior is golden-tested record-for-record against
+// cutesv_tpu_torch/extract.py.
+//
+// A BAM's BGZF blocks inflate where the decode's device is: given the
+// card back end (a CardInflate table from cutesv_tpu_torch/csrc/
+// bgzf_inflate.cu, passed in by io/native.py for a CUDA device), batches
+// of blocks inflate on the card while this thread parses the batch before,
+// and no zlib thread runs; without it, a pool of zlib threads inflates
+// them (a CPU device). A CRAM's blocks, and a bgzipped FASTA's, always use
+// zlib. This file includes no CUDA header: the card is reached only
+// through the table's C functions.
 //
 // C ABI at the bottom; consumed by cutesv_tpu_torch/io/native.py via
 // ctypes. Built by cutesv_tpu_torch/ops/build.py with
@@ -39,6 +48,9 @@
 #include <deque>
 #include <functional>
 #include <set>
+
+// the card back end's table (CardInflate), shared with bgzf_inflate.cu
+#include "../csrc/card_inflate.h"
 
 // ---------------------------------------------------------------------------
 // compression back end: zlib (raw deflate, gzip, zlib framing, CRC-32) and
@@ -718,21 +730,29 @@ struct Extractor {
 
 // growable raw byte buffer: no zero-fill on growth, reused across chunks
 // (std::string::resize would write the whole chunk twice — zero-fill then
-// inflate — and reallocate every iteration)
+// inflate — and reallocate every iteration). It may instead view memory it
+// does not own (a card back end's pinned slot, ``view``), which never grows.
 struct RawBuf {
   std::unique_ptr<char[]> mem;
+  char* ext = nullptr;
   size_t cap = 0;
   size_t start = 0, len = 0;  // valid payload = [start, len)
   void ensure(size_t n) {
     if (cap >= n) return;
+    if (ext) throw std::runtime_error("card inflate: a batch overflows its slot");
     size_t nc = std::max(n, cap * 2);
     std::unique_ptr<char[]> nm(new char[nc]);
     if (len > 0) memcpy(nm.get(), mem.get(), len);
     mem.swap(nm);
     cap = nc;
   }
-  char* data() { return mem.get(); }
-  const char* data() const { return mem.get(); }
+  void view(char* p, size_t n) {
+    mem.reset();
+    ext = p;
+    cap = n;
+  }
+  char* data() { return ext ? ext : mem.get(); }
+  const char* data() const { return ext ? ext : mem.get(); }
 };
 
 // Parse one BGZF block header inside a mapping; fills the payload span,
@@ -774,12 +794,21 @@ inline bool bgzf_parse_block_at(const uint8_t* map, size_t size,
   return true;
 }
 
+// Two back ends inflate the blocks: a pool of zlib threads (the caller's
+// thread helps), or, given a CardInflate, the card: batches of blocks
+// inflate there while the caller parses, with no zlib thread at all.
 struct BgzfChunkReader {
   FILE* f;
   int n_threads;
   bool eof = false;
   bool truncated = false;  // stream ended mid-block (corrupt/cut file)
+  // a stream's block whose header read_chunk read but whose payload it
+  // left for the next chunk (its length; 0: none)
+  size_t held_cdata = 0;
   std::atomic<bool> inflate_bad{false};  // a block failed to inflate
+  // blocks inflated by each back end
+  std::atomic<int64_t> blocks_host{0};
+  int64_t blocks_card = 0;
   // zero-copy mode: regular files are mmap'd and blocks reference the
   // mapping directly — the per-chunk fread copy of ~the whole file is
   // the single biggest avoidable decode cost on CPU-starved hosts
@@ -803,8 +832,9 @@ struct BgzfChunkReader {
   std::thread rat;        // read-ahead thread filling ``ra``
   bool ra_active = false;
 
-  explicit BgzfChunkReader(FILE* fh, int threads)
-      : f(fh), n_threads(std::max(1, threads)) {
+  explicit BgzfChunkReader(FILE* fh, int threads,
+                           const CardInflate* card_ = nullptr)
+      : f(fh), n_threads(std::max(1, threads)), card(card_) {
     // more inflate participants than cores only adds contention: with
     // the persistent pool + async jobs the caller already helps in
     // finish_raw, so hw participants total measures fastest (round-5
@@ -827,6 +857,14 @@ struct BgzfChunkReader {
         madvise(m, map_size, MADV_SEQUENTIAL);
       }
     }
+    if (card) {
+      card->acquire(card->ctx);
+      card_chunks.resize(card->lanes);
+      card_slot_busy.assign(card->slots, 0);
+      card_slot_total.assign(card->slots, 0);
+      card_slot_blocks.assign(card->slots, 0);
+      return;
+    }
     // persistent inflate workers (the caller thread participates too, so
     // pool size is n_threads-1): spawning threads + allocating a
     // decompressor per chunk cost ~3 spawns x ~775 chunks per 200 Mb
@@ -837,6 +875,7 @@ struct BgzfChunkReader {
   ~BgzfChunkReader() {
     if (rat.joinable()) rat.join();
     finish_raw();  // a pending async job writes into caller-owned memory
+    if (card) note_card(card->release(card->ctx));  // waits for all
     {
       std::lock_guard<std::mutex> lk(job_mu);
       shutdown_ = true;
@@ -909,6 +948,7 @@ struct BgzfChunkReader {
       // records: flag the chunk and let the consumer raise
       if (!ok || actual != b.isize)
         inflate_bad.store(true, std::memory_order_relaxed);
+      blocks_host.fetch_add(1, std::memory_order_relaxed);
     }
   }
 
@@ -956,6 +996,155 @@ struct BgzfChunkReader {
     return true;
   }
 
+  // --- the card back end ---------------------------------------------
+  // Batches are read in order: submitted to the lanes round robin (the
+  // lanes in use are the ``card_flight`` ones, oldest first), fetched into
+  // free host slots in the same order (``card_ready``), and handed to the
+  // caller in that order (``card_handed``; finish_raw waits for the last
+  // one handed out). A lane is free once its batch is fetched, a slot once
+  // the caller is done with its batch.
+  const CardInflate* card = nullptr;
+  std::vector<Chunk> card_chunks;     // each lane's batch
+  std::deque<int> card_flight;        // lanes submitted, not yet fetched
+  std::deque<int> card_ready;         // slots fetched, not yet handed out
+  std::deque<int> card_handed;        // slots handed out, oldest first
+  std::vector<char> card_slot_busy;
+  std::vector<size_t> card_slot_total, card_slot_blocks;
+  int64_t card_seq = 0;               // batches submitted
+  int card_pending = -1;              // the handed slot not yet waited for
+  std::vector<uint32_t> card_meta;
+  int card_err = 0;                   // the back end's first CUDA error
+  int64_t card_bad = 0;               // blocks that did not inflate
+
+  // The next batch for the card: up to max_blocks blocks whose payloads
+  // span at most in_cap bytes (a single block always fits).
+  void read_chunk_card(Chunk& c) {
+    if (!map) { read_chunk(c, card->max_blocks, card->in_cap); return; }
+    c.blocks.clear();
+    c.total = 0;
+    c.cbuf.len = 0;
+    const size_t span0 = map_pos;
+    for (int i = 0; i < card->max_blocks; i++) {
+      if (map_pos >= map_size) { eof = true; break; }
+      size_t coff, nxt;
+      uint32_t clen, isize;
+      if (!bgzf_parse_block_at(map, map_size, map_pos, &coff, &clen,
+                               &isize, &nxt))
+        { eof = true; truncated = true; break; }
+      if (!c.blocks.empty() && nxt - span0 > card->in_cap) break;
+      c.blocks.push_back({coff, clen, isize, c.total});
+      c.total += isize;
+      map_pos = nxt;
+    }
+  }
+
+  void note_card(int err) {
+    if (err == 0) return;
+    if (card_err == 0) card_err = err;
+    inflate_bad.store(true, std::memory_order_relaxed);
+  }
+
+  // Read the next batch into lane k and submit it; false at end of stream.
+  // From the mapping the batch's payloads lie in one span of the file; a
+  // stream's are packed in the chunk's buffer.
+  bool card_submit(int k) {
+    Chunk& c = card_chunks[k];
+    read_chunk_card(c);
+    if (c.blocks.empty()) return false;
+    const unsigned char* src = (const unsigned char*)c.cbuf.data();
+    size_t base = 0, src_bytes = c.cbuf.len;
+    if (map) {
+      base = c.blocks.front().off;
+      src = map + base;
+      src_bytes = c.blocks.back().off + c.blocks.back().clen - base;
+    }
+    card_meta.resize(4 * c.blocks.size());
+    for (size_t i = 0; i < c.blocks.size(); i++) {
+      const Blk& b = c.blocks[i];
+      card_meta[4 * i] = (uint32_t)(b.off - base);
+      card_meta[4 * i + 1] = b.clen;
+      card_meta[4 * i + 2] = (uint32_t)b.out_off;
+      card_meta[4 * i + 3] = b.isize;
+    }
+    note_card(card->submit(card->ctx, k, src, src_bytes, card_meta.data(),
+                           (int)c.blocks.size(), c.total));
+    return true;
+  }
+
+  void card_fetch(int k, int j) {
+    note_card(card->fetch(card->ctx, k, j));
+    card_slot_busy[j] = 1;
+    card_slot_total[j] = card_chunks[k].total;
+    card_slot_blocks[j] = card_chunks[k].blocks.size();
+  }
+
+  void card_wait(int j) {
+    int n_bad = 0;
+    note_card(card->wait(card->ctx, j, &n_bad));
+    if (n_bad != 0) inflate_bad.store(true, std::memory_order_relaxed);
+    card_bad += n_bad;
+    blocks_card += (int64_t)card_slot_blocks[j];
+  }
+
+  // Fetch the oldest batches into the free slots and fill the free lanes.
+  void card_top_up() {
+    for (;;) {
+      bool moved = false;
+      for (int j = 0; j < card->slots && !card_flight.empty(); j++) {
+        if (card_slot_busy[j]) continue;
+        card_fetch(card_flight.front(), j);
+        card_flight.pop_front();
+        card_ready.push_back(j);
+        moved = true;
+      }
+      while (!eof && (int)card_flight.size() < card->lanes) {
+        const int k = (int)(card_seq % card->lanes);
+        if (!card_submit(k)) break;
+        card_seq++;
+        card_flight.push_back(k);
+        moved = true;
+      }
+      if (!moved) return;
+    }
+  }
+
+  // One batch, synchronously (the header; a range's first records): no
+  // batch is on the card yet.
+  bool card_next_chunk(std::string& out) {
+    const int k = (int)(card_seq % card->lanes), j = 0;
+    if (!card_submit(k)) return false;
+    card_seq++;
+    card_fetch(k, j);
+    card_wait(j);
+    card_slot_busy[j] = 0;
+    out.assign(card->host_out(card->ctx, j) + card->gap, card_slot_total[j]);
+    return true;
+  }
+
+  // Free the slot handed out before the last one (the caller is done with
+  // it), top the card up, and hand the oldest batch fetched to ``out``,
+  // which then views its slot: the caller parses the last batch handed
+  // out while this one and the others inflate.
+  bool card_next_raw(RawBuf& out, size_t prefix) {
+    if (prefix != card->gap)
+      throw std::runtime_error("card inflate: the back end's gap is not "
+                               "the decoder's");
+    while (card_handed.size() > 1) {
+      card_slot_busy[card_handed.front()] = 0;
+      card_handed.pop_front();
+    }
+    card_top_up();
+    if (card_ready.empty()) return false;
+    const int j = card_ready.front();
+    card_ready.pop_front();
+    card_handed.push_back(j);
+    card_pending = j;
+    out.view(card->host_out(card->ctx, j), card->gap + card->out_cap);
+    out.start = prefix;
+    out.len = prefix + card_slot_total[j];
+    return true;
+  }
+
   // Scan up to max_blocks BGZF block headers in the mapping (no copy).
   void read_chunk_map(Chunk& c, int max_blocks) {
     c.blocks.clear();
@@ -975,39 +1164,22 @@ struct BgzfChunkReader {
   }
 
   // Read up to max_blocks BGZF block payloads into ``c``.
-  void read_chunk(Chunk& c, int max_blocks) {
+  void read_chunk(Chunk& c, int max_blocks, size_t max_bytes = SIZE_MAX) {
     if (map) { read_chunk_map(c, max_blocks); return; }
     c.blocks.clear();
     c.total = 0;
     c.cbuf.len = 0;
     size_t used = 0;
     for (int i = 0; i < max_blocks; i++) {
-      unsigned char hdr[12];
-      size_t got = fread(hdr, 1, 12, f);
-      if (got == 0) { eof = true; break; }
-      if (got < 12 || hdr[0] != 0x1f || hdr[1] != 0x8b)
-        { eof = true; truncated = true; break; }
-      uint16_t xlen = (uint16_t)(hdr[10] | (hdr[11] << 8));
-      unsigned char extra[65536];
-      if (fread(extra, 1, xlen, f) != xlen)
-        { eof = true; truncated = true; break; }
-      int bsize = -1;
-      for (int off = 0; off + 4 <= xlen;) {
-        uint8_t si1 = extra[off], si2 = extra[off + 1];
-        uint16_t slen = (uint16_t)(extra[off + 2] | (extra[off + 3] << 8));
-        // the 2-byte BSIZE payload itself must lie inside the extra
-        // field (a BC header in the last <2 bytes would read past what
-        // fread filled — and past the array at xlen=65535)
-        if (si1 == 66 && si2 == 67 && slen == 2 && off + 6 <= (int)xlen)
-          bsize = extra[off + 4] | (extra[off + 5] << 8);
-        if (off + 4 + (int)slen > (int)xlen) break;  // payload overflows
-        off += 4 + slen;
+      size_t cdata_len = held_cdata;
+      held_cdata = 0;
+      if (cdata_len == 0 && !read_block_header(&cdata_len)) break;
+      // a block that would take the chunk's payloads past max_bytes
+      // waits, its header read, for the next chunk
+      if (!c.blocks.empty() && used + cdata_len > max_bytes) {
+        held_cdata = cdata_len;
+        break;
       }
-      // BSIZE is total-block-size-1; anything smaller than the fixed
-      // header+footer would underflow cdata_len below (corrupt/crafted)
-      if (bsize < 0 || (size_t)bsize + 1 < 12u + xlen + 8u)
-        { eof = true; truncated = true; break; }
-      size_t cdata_len = (size_t)bsize + 1 - 12 - xlen - 8;
       c.cbuf.len = used;  // growth must preserve the payloads so far
       c.cbuf.ensure(used + cdata_len);
       if (fread(c.cbuf.data() + used, 1, cdata_len, f) != cdata_len)
@@ -1025,6 +1197,39 @@ struct BgzfChunkReader {
       c.total += isize;
     }
     c.cbuf.len = used;
+  }
+
+  // Read the stream's next BGZF header, up to its payload, and give the
+  // payload's length. False at the stream's end, or at a malformed or cut
+  // header (which also sets ``truncated``).
+  bool read_block_header(size_t* cdata_len) {
+    unsigned char hdr[12];
+    size_t got = fread(hdr, 1, 12, f);
+    if (got == 0) { eof = true; return false; }
+    if (got < 12 || hdr[0] != 0x1f || hdr[1] != 0x8b)
+      { eof = true; truncated = true; return false; }
+    uint16_t xlen = (uint16_t)(hdr[10] | (hdr[11] << 8));
+    unsigned char extra[65536];
+    if (fread(extra, 1, xlen, f) != xlen)
+      { eof = true; truncated = true; return false; }
+    int bsize = -1;
+    for (int off = 0; off + 4 <= xlen;) {
+      uint8_t si1 = extra[off], si2 = extra[off + 1];
+      uint16_t slen = (uint16_t)(extra[off + 2] | (extra[off + 3] << 8));
+      // the 2-byte BSIZE payload itself must lie inside the extra
+      // field (a BC header in the last <2 bytes would read past what
+      // fread filled — and past the array at xlen=65535)
+      if (si1 == 66 && si2 == 67 && slen == 2 && off + 6 <= (int)xlen)
+        bsize = extra[off + 4] | (extra[off + 5] << 8);
+      if (off + 4 + (int)slen > (int)xlen) break;  // payload overflows
+      off += 4 + slen;
+    }
+    // BSIZE is total-block-size-1; anything smaller than the fixed
+    // header+footer would underflow cdata_len below (corrupt/crafted)
+    if (bsize < 0 || (size_t)bsize + 1 < 12u + xlen + 8u)
+      { eof = true; truncated = true; return false; }
+    *cdata_len = (size_t)bsize + 1 - 12 - xlen - 8;
+    return true;
   }
 
   // synchronous inflate (header phase, CRAM FASTA load): caller helps
@@ -1071,8 +1276,10 @@ struct BgzfChunkReader {
     return !cur.blocks.empty();
   }
 
-  // string variant (header phase, FASTA load): simple, zero-fills
+  // string variant (header phase, FASTA load): simple, zero-fills. On the
+  // card a chunk is one batch, whatever max_blocks asks for.
   bool next_chunk(std::string& out, int max_blocks = 4096) {
+    if (card) return card_next_chunk(out);
     if (!advance(max_blocks)) return false;
     out.clear();
     out.resize(cur.total);
@@ -1086,6 +1293,7 @@ struct BgzfChunkReader {
   // destroyed. (On the non-mmap path advance() may block in the
   // read-ahead join before parsing — regular files all take mmap.)
   bool start_next_raw(RawBuf& out, size_t prefix, int max_blocks = 128) {
+    if (card) return card_next_raw(out, prefix);
     if (!advance(max_blocks)) return false;
     out.len = 0;  // nothing to preserve on growth
     out.ensure(prefix + cur.total);
@@ -1105,6 +1313,10 @@ struct BgzfChunkReader {
   // join the pending async inflate, helping with leftover blocks. Safe
   // no-op when nothing is pending.
   void finish_raw() {
+    if (card_pending >= 0) {
+      card_wait(card_pending);
+      card_pending = -1;
+    }
     if (!job_pending) return;
     inflate_span(caller_d.get(), *job_chunk, job_dst);
     wait_done();
@@ -1631,6 +1843,12 @@ struct Decoder {
   // copied out of the run()-local reader before it is destroyed
   std::atomic<uint64_t> records_core_ns{0};
   double inflate_core_s = 0;
+  // the card back end (null: zlib threads), the BGZF blocks each back
+  // end inflated, and on the card the batches the reader submitted and
+  // the kernel launches the back end made
+  const CardInflate* card = nullptr;
+  int64_t blocks_card = 0, blocks_host = 0;
+  int64_t batches_card = 0, launches_card = 0;
   // streaming: merges into C and snapshot reads share this lock; progress
   // holds the refID currently being decoded (records are coordinate-
   // sorted, so every chromosome with a smaller id has all of its
@@ -1846,7 +2064,19 @@ struct Decoder {
     // reader's destructor (which finishes that job) runs while the
     // buffers it writes into are still alive
     RawBuf A, B;
-    BgzfChunkReader rd(f, (int)P.n_threads);
+    BgzfChunkReader rd(f, (int)P.n_threads, card);
+    auto take_counters = [&]() {
+      inflate_core_s = rd.inflate_core_ns.load() * 1e-9;
+      blocks_card = rd.blocks_card;
+      blocks_host = rd.blocks_host.load();
+      batches_card = rd.card_seq;
+      launches_card = card ? card->launched(card->ctx) : 0;
+      if (rd.card_err != 0)
+        err_msg = "card inflate: CUDA error " + std::to_string(rd.card_err);
+      else if (rd.card_bad != 0)
+        err_msg = "card inflate: " + std::to_string(rd.card_bad)
+                  + " BGZF blocks did not inflate to their size";
+    };
     // every early return must finish any pending pool inflate (it writes
     // into a caller-owned buffer) and join the read-ahead thread BEFORE
     // closing the FILE* it may still be fread()ing from
@@ -1854,7 +2084,7 @@ struct Decoder {
       rd.finish_raw();
       if (rd.rat.joinable()) rd.rat.join();
       rd.ra_active = false;
-      inflate_core_s = rd.inflate_core_ns.load() * 1e-9;
+      take_counters();
       fclose(f);
       return status;
     };
@@ -1941,6 +2171,7 @@ struct Decoder {
         // range holds no record boundary (tiny tail range)
         first_u = next_u = (int64_t)first.size();
         if (rd.rat.joinable()) rd.rat.join();
+        take_counters();
         fclose(f);
         return 0;
       }
@@ -2025,7 +2256,7 @@ struct Decoder {
     t_records = (walk_t1_ns - walk_t0_ns) * 1e-9;
     if (rd.truncated || rd.inflate_bad.load(std::memory_order_relaxed))
       return bail(5);
-    inflate_core_s = rd.inflate_core_ns.load() * 1e-9;
+    take_counters();
     fclose(f);
     return 0;
   }
@@ -2131,10 +2362,11 @@ static CResult* bamdecode_setup(const char* path, const int64_t* params,
                                 const int32_t* bed_chr,
                                 const int64_t* bed_start,
                                 const int64_t* bed_end, int64_t n_bed,
-                                bool* is_cram_out) {
+                                const void* card, bool* is_cram_out) {
   auto* r = new CResult();
   auto* d = new Decoder();
   r->dec = d;
+  d->card = static_cast<const CardInflate*>(card);
   d->P.min_size = params[0];
   d->P.min_mapq = params[1];
   d->P.max_split_parts = params[2];
@@ -2246,13 +2478,15 @@ extern "C" const char* bamdecode_err(CResult* r) {
   return r->dec->err_msg.c_str();
 }
 
+// ``card``: a CardInflate (cutesv_inflate_create) that inflates a BAM's
+// BGZF blocks on the card, or null for zlib threads; a CRAM ignores it.
 CResult* bamdecode_run(const char* path, const char* ref_path,
                        const int64_t* params, const int32_t* bed_chr,
                        const int64_t* bed_start, const int64_t* bed_end,
-                       int64_t n_bed) {
+                       int64_t n_bed, const void* card) {
   bool is_cram = false;
   CResult* r = bamdecode_setup(path, params, bed_chr, bed_start, bed_end,
-                               n_bed, &is_cram);
+                               n_bed, card, &is_cram);
   Decoder* d = r->dec;
   r->status = run_guarded(*d, path, ref_path, is_cram);
   d->progress.store(INT32_MAX, std::memory_order_release);
@@ -2277,10 +2511,10 @@ CResult* bamdecode_run(const char* path, const char* ref_path,
 CResult* bamdecode_start(const char* path, const char* ref_path,
                          const int64_t* params, const int32_t* bed_chr,
                          const int64_t* bed_start, const int64_t* bed_end,
-                         int64_t n_bed) {
+                         int64_t n_bed, const void* card) {
   bool is_cram = false;
   CResult* r = bamdecode_setup(path, params, bed_chr, bed_start, bed_end,
-                               n_bed, &is_cram);
+                               n_bed, card, &is_cram);
   Decoder* d = r->dec;
   std::string p(path), rp(ref_path ? ref_path : "");
   bool has_ref = ref_path != nullptr;
@@ -2710,6 +2944,16 @@ double bamdecode_inflate_core_seconds(CResult* r) {
 }
 double bamdecode_records_core_seconds(CResult* r) {
   return r->dec->records_core_ns.load() * 1e-9;
+}
+
+// the BGZF blocks the card and the zlib threads inflated in the call, the
+// batches the reader handed the card and the kernel launches made for them
+void bamdecode_blocks(CResult* r, int64_t* card, int64_t* host,
+                      int64_t* batches, int64_t* launches) {
+  *card = r->dec->blocks_card;
+  *host = r->dec->blocks_host;
+  *batches = r->dec->batches_card;
+  *launches = r->dec->launches_card;
 }
 
 // generic array accessor: returns pointer + element count via out params.

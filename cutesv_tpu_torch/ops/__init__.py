@@ -6,5 +6,8 @@
     sweep.py          the cover-count coordinate contract and its plain
                       PyTorch version
     cover.py          the cover-count CUDA kernel's wrapper (csrc/cover_count.cu)
+    inflate.py        the BGZF inflate CUDA kernel's wrapper, its plain zlib
+                      version and the decoder's card back end
+                      (csrc/bgzf_inflate.cu)
     build.py          nvcc build + ctypes load of the csrc/ kernels
 """

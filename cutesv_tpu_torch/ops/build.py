@@ -6,14 +6,15 @@
   shared library with a plain C interface,
   ``build/torch_kernels/<key>/libcutesv_torch_kernels.so``.
 * The C++ BAM decoder of ``native/``: ``bamdecode.cpp`` (which includes
-  ``cramdecode.inc``) compiled by ``g++`` into
+  ``cramdecode.inc`` and ``csrc/card_inflate.h``) compiled by ``g++`` into
   ``build/native/<key>/libbamdecode.so``, linked against the runtime
   zlib, liblzma and libbz2 only (no development headers needed).
 
 ``build/`` sits beside the package. ``<key>`` hashes every file of the
 library's source folder and the compiler flags (for the decoder, built
-with ``-march=native``, also the host CPU's model and feature flags), so
-a change to any of them builds a new library. Both load with ``ctypes``.
+with ``-march=native``, also the host CPU's model and feature flags and
+``csrc/card_inflate.h``), so a change to any of them builds a new
+library. Both load with ``ctypes``.
 Nothing here runs at import time: the first use builds, so machines
 without ``nvcc`` (CPU-only test runs) never reach the kernel build. A
 build writes to per-process temporary names and publishes with
@@ -38,6 +39,8 @@ NATIVE = PKG / "native"
 BUILD_ROOT = PKG.parent / "build"
 LIB_NAME = "libcutesv_torch_kernels.so"
 DECODER_NAME = "libbamdecode.so"
+# the card inflate back end's table, which the decoder includes too
+CARD_HEADER = CSRC / "card_inflate.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX = "g++"
@@ -135,7 +138,8 @@ def build_decoder() -> Path:
     return the library path; records the wall seconds and g++'s output
     in ``build_info["decoder"]``."""
     flags = GXX_FLAGS + GXX_LIBS
-    out_dir = BUILD_ROOT / "native" / _key(NATIVE, flags, _cpu_id())
+    out_dir = BUILD_ROOT / "native" / _key(
+        NATIVE, flags, _cpu_id() + CARD_HEADER.read_bytes())
     lib = out_dir / DECODER_NAME
     if lib.exists():
         build_info.setdefault("decoder", dict(seconds=0.0, report=""))
@@ -170,6 +174,11 @@ def library() -> ctypes.CDLL:
             lib.cutesv_cover_count.argtypes = [vp, vp, ci, vp, vp, ci, vp,
                                                cs, vp, vp]
             lib.cutesv_cover_count.restype = ci
+            lib.cutesv_inflate_launch.argtypes = [vp, ctypes.c_uint64, vp, ci,
+                                                  vp, vp, vp]
+            lib.cutesv_inflate_launch.restype = ci
+            lib.cutesv_inflate_create.argtypes = [ci, ctypes.POINTER(vp)]
+            lib.cutesv_inflate_create.restype = ci
             _libs["kernels"] = lib
     return lib
 

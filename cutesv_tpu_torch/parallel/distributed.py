@@ -473,7 +473,8 @@ def allgather_obj(obj, info: dict = None):
     return out
 
 
-def decode_sharded(cfg, bed_ids, is_cram: bool = False, info: dict = None):
+def decode_sharded(cfg, bed_ids, is_cram: bool = False, info: dict = None,
+                   device=None):
     """Distributed decode: this process inflates only its byte range of
     the input (block-aligned for BAM, container-aligned for CRAM), then
     the per-shard partial decodes are allgathered (signatures + census
@@ -482,7 +483,8 @@ def decode_sharded(cfg, bed_ids, is_cram: bool = False, info: dict = None):
     ~1/num_processes. Cross-shard boundaries are checked equal before
     any result is used. ``info`` receives the allgather's sizes and
     seconds; the merged decode carries this process's record count
-    (``shard_records``) and decoder timers."""
+    (``shard_records``) and decoder timers. A BAM's BGZF blocks inflate
+    on the card of a CUDA ``device``."""
     from cutesv_tpu_torch.io import native as native_io
 
     n = process_count()
@@ -495,7 +497,7 @@ def decode_sharded(cfg, bed_ids, is_cram: bool = False, info: dict = None):
     else:
         ranges = plan_shard_ranges(cfg.input, n)
         nd = native_io.decode(cfg.input, cfg, bed_ids,
-                              byte_range=ranges[k][:2])
+                              byte_range=ranges[k][:2], device=device)
     log.info("sharded decode: shard %d/%d decoded %d records", k, n,
              nd.n_records)
     parts = allgather_obj(nd, info)
@@ -507,4 +509,8 @@ def decode_sharded(cfg, bed_ids, is_cram: bool = False, info: dict = None):
     merged.walk_s = nd.walk_s
     merged.inflate_core_s = nd.inflate_core_s
     merged.records_core_s = nd.records_core_s
+    merged.blocks_card = nd.blocks_card
+    merged.blocks_host = nd.blocks_host
+    merged.batches_card = nd.batches_card
+    merged.launches_card = nd.launches_card
     return merged

@@ -99,8 +99,10 @@ def decode_bam(cfg: Config, device=None):
     programs on ``device`` while it runs. "python": the pure-Python
     reader, the behavioral oracle. The store carries
     ``decode_breakdown``: which decoder ran and, for the native one, its
-    record-walk wall and inflate / record-parse core-seconds (plus the
-    streaming split)."""
+    record-walk wall, inflate / record-parse core-seconds and the BGZF
+    blocks inflated on the card and on the host (plus the streaming
+    split). A BAM's blocks inflate on the card of a CUDA ``device``, in
+    zlib threads otherwise."""
     with open(cfg.input, "rb") as probe:
         is_cram = probe.read(4) == b"CRAM"
     if cfg.decoder in ("native", "auto"):
@@ -415,7 +417,9 @@ def _decode_bam_native_streaming(cfg: Config, bed_ids, device,
 
     native_io.get_lib()  # a failed decoder build raises before the device
     device = resolve_device(device)
-    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, reference)
+    # a BAM's BGZF blocks inflate on the card of a CUDA device
+    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, reference,
+                                   device=None if reference else device)
     try:
         handles, fingerprints, early_results = _streaming_poll_loop(
             sd, cfg, device)
@@ -437,7 +441,9 @@ def _decode_bam_native_streaming(cfg: Config, bed_ids, device,
     store.decode_breakdown = dict(
         decoder="native", streaming=True, walk_s=nd.walk_s,
         inflate_core_s=nd.inflate_core_s,
-        records_core_s=nd.records_core_s,
+        records_core_s=nd.records_core_s, blocks_card=nd.blocks_card,
+        blocks_host=nd.blocks_host, batches_card=nd.batches_card,
+        launches_card=nd.launches_card,
         early_dispatched=len(handles) + len(early_results),
         early_kernels=len(store.early_kernels),
         early_tails=len(store.early_results))
@@ -470,6 +476,10 @@ def _sharded_breakdown(records: int, timers, gather: dict, k: int,
                 shard_records=records, walk_s=timers.walk_s,
                 inflate_core_s=timers.inflate_core_s,
                 records_core_s=timers.records_core_s,
+                blocks_card=timers.blocks_card,
+                blocks_host=timers.blocks_host,
+                batches_card=timers.batches_card,
+                launches_card=timers.launches_card,
                 allgather_mb=gather["local_mb"],
                 allgather_total_mb=gather["total_mb"],
                 allgather_s=gather["seconds"])
@@ -506,7 +516,8 @@ def _decode_sharded_streaming(cfg: Config, bed_ids, device):
     k = dist.process_index()
     ranges = dist.plan_shard_ranges(cfg.input, n)
     rng = ranges[k][:2]
-    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, byte_range=rng)
+    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, byte_range=rng,
+                                   device=device)
     try:
         handles, fingerprints, early_results = _streaming_poll_loop(
             sd, cfg, device, tail_chrom_ok=_shard_tail_gate(sd, rng[0]),
@@ -598,7 +609,7 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
                 return _decode_sharded_streaming(cfg, bed_ids, device)
             gather: dict = {}
             nd = dist.decode_sharded(cfg, bed_ids, is_cram=is_cram,
-                                     info=gather)
+                                     info=gather, device=device)
             _check_coordinate_sorted(nd.arrays["all_chr"],
                                      nd.arrays["all_start"], nd.chroms)
             store = _build_store(nd)
@@ -611,7 +622,8 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
             references = [(nd.chroms[i], int(nd.ref_lengths[i]))
                           for i in range(len(nd.ref_lengths))]
             return store, None, references, nd.n_records
-    nd = native_io.decode(cfg.input, cfg, bed_ids, reference=reference)
+    nd = native_io.decode(cfg.input, cfg, bed_ids, reference=reference,
+                          device=None if is_cram else device)
     _walk_span(nd)
     _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
                              nd.chroms)
@@ -619,7 +631,11 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
     store.decode_breakdown = dict(decoder="native", streaming=False,
                                   walk_s=nd.walk_s,
                                   inflate_core_s=nd.inflate_core_s,
-                                  records_core_s=nd.records_core_s)
+                                  records_core_s=nd.records_core_s,
+                                  blocks_card=nd.blocks_card,
+                                  blocks_host=nd.blocks_host,
+                                  batches_card=nd.batches_card,
+                                  launches_card=nd.launches_card)
     references = [(nd.chroms[i], int(nd.ref_lengths[i]))
                   for i in range(len(nd.ref_lengths))]
     return store, None, references, nd.n_records
@@ -628,12 +644,16 @@ def _decode_bam_native(cfg: Config, device=None, is_cram=False):
 def _walk_span(nd) -> None:
     """The native decoder's record walk as the span ``decode.walk`` (its
     own start and end on the epoch clock, on the decoder's thread) with
-    its records and core-seconds; none when the walk did not run."""
+    its records, core-seconds and the BGZF blocks that the card and the
+    zlib threads inflated (the header's too); none when the walk did not
+    run."""
     if nd.walk_t1_ns > nd.walk_t0_ns > 0:
         trace.add_span("decode.walk", nd.walk_t0_ns, nd.walk_t1_ns,
                        "decoder", records=nd.n_records,
                        inflate_core_s=nd.inflate_core_s,
-                       records_core_s=nd.records_core_s)
+                       records_core_s=nd.records_core_s,
+                       blocks_card=nd.blocks_card,
+                       blocks_host=nd.blocks_host)
 
 
 def _n_sigs(store) -> Dict[str, int]:

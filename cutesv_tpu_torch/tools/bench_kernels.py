@@ -1,5 +1,6 @@
-"""Kernel benchmark of the port: the device programs and the cover
-kernel against rooflines measured on the same card in the same run.
+"""Kernel benchmark of the port: the device programs, the cover kernel
+and the BGZF inflate kernel against rooflines measured on the same card
+in the same run.
 
 The port's counterpart of the repo's root ``tools/bench_kernels.py``. It
 measures the three device programs the pipeline dispatches, at realistic
@@ -21,6 +22,18 @@ windows by default):
     and beside the all-pairs operations bound (``dense_bound_ms``), with
     the candidate pairs the pruned ranges hold and the pairs the
     kernel's groups of windows compare (``ops/sweep.py::pruned_pairs``).
+
+  * the BGZF inflate (``csrc/bgzf_inflate.cu``): the bare kernel over one
+    batch of the decoder's size (``N_BLOCKS`` blocks of a simulated HiFi
+    BAM's records, cut and compressed as the benchmark's corpus is, or a
+    given BAM's first blocks), against its byte floor, beside zlib's time
+    on one host core for the same blocks and the batch's copies up and
+    down through pinned memory (the decoder's floor on the card), and
+    held to zlib's bytes. The simulated reads carry no base qualities
+    (QUAL is 0xFF), which deflate codes as long matches; a second batch
+    (``inflate_phred``) gives them Phred qualities (``PHRED``) and
+    compresses at zlib's default level, as BAM writers do, cut where the
+    decoder cuts a batch (``CARD_IN_CAP`` compressed bytes);
 
 and two rooflines:
 
@@ -45,10 +58,11 @@ the host).
 
     python -m cutesv_tpu_torch.tools.bench_kernels [--device cuda]
 
-Sizes come from ``KBENCH_REPS``, ``KBENCH_ROWS``, ``KBENCH_READS`` and
-``KBENCH_SV``. Prints one JSON line. It names the device and the card
-(``nvidia-smi`` name and power limit); on a CPU device (the tests) they
-say ``cpu``, and no number of such a run is a device figure.
+Sizes come from ``KBENCH_REPS``, ``KBENCH_ROWS``, ``KBENCH_READS``,
+``KBENCH_SV`` and ``KBENCH_BLOCKS``. Prints one JSON line. It names the
+device and the card (``nvidia-smi`` name and power limit); on a CPU
+device (the tests) they say ``cpu``, and no number of such a run is a
+device figure.
 """
 from __future__ import annotations
 
@@ -57,12 +71,14 @@ import contextlib
 import json
 import os
 import subprocess
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
-from cutesv_tpu_torch.ops import cover
+from cutesv_tpu_torch.ops import cover, inflate
 from cutesv_tpu_torch.ops.indel_cluster import (indel_cluster_structure,
                                                 lexsort)
 from cutesv_tpu_torch.ops.pair_cluster import pair_cluster_structure
@@ -74,6 +90,16 @@ REPS = int(os.environ.get("KBENCH_REPS", "8"))
 N_ROWS = int(os.environ.get("KBENCH_ROWS", str(1 << 20)))
 N_READS = int(os.environ.get("KBENCH_READS", str(1 << 20)))
 N_SV = int(os.environ.get("KBENCH_SV", str(1 << 15)))
+# a batch of the decoder's card back end (csrc/bgzf_inflate.cu MAX_BLOCKS)
+N_BLOCKS = int(os.environ.get("KBENCH_BLOCKS", "384"))
+BGZF_BLOCK = 0xFF00  # the input bytes of a BGZF block (htslib's and the
+                     # benchmark corpus's)
+CARD_IN_CAP = 4 << 20  # compressed bytes a batch (csrc/bgzf_inflate.cu)
+# the inflate's quality batch: Phred values drawn from a normal of this
+# mean and deviation, rounded and clipped to [2, 60] (~5 bits a base; a
+# stand-in with no sourced profile behind it), compressed at zlib level 6
+PHRED = (30.0, 8.0)
+PHRED_LEVEL = 6
 
 STREAM_BYTES = 128 << 20
 STREAM_PASSES = 16
@@ -320,8 +346,139 @@ def bench_cover(n_sv: int, n_reads: int, device: torch.device, rtt: float,
             "bare_efficiency_vs_bound": bound_ms / 1e3 / bare_s}
 
 
+def with_phred(raw: bytes, seed: int = 11) -> bytes:
+    """``raw``, a BAM's inflated bytes from its start (the last record may
+    be cut), with every record's QUAL drawn from ``PHRED``."""
+    buf = bytearray(raw)
+    rng = np.random.default_rng(seed)
+
+    def i32(p):
+        return int.from_bytes(buf[p:p + 4], "little")
+
+    p = 8 + i32(4)                          # magic, l_text, text
+    n_ref, p = i32(p), p + 4
+    for _ in range(n_ref):                  # l_name, name, l_ref
+        p += 8 + i32(p)
+    while p + 36 <= len(buf):
+        l_seq = i32(p + 20)
+        q = (p + 36 + buf[p + 12] + 4 * int.from_bytes(buf[p + 16:p + 18],
+                                                       "little")
+             + (l_seq + 1) // 2)
+        n = max(0, min(l_seq, len(buf) - q))
+        buf[q:q + n] = np.clip(np.rint(rng.normal(*PHRED, n)), 2,
+                               60).astype(np.uint8).tobytes()
+        p += 4 + i32(p)
+    return bytes(buf)
+
+
+def inflate_inputs(n_blocks: int, path: str = None,
+                   phred: bool = False) -> tuple:
+    """A batch of ``n_blocks`` BGZF blocks: ``path``'s first blocks as
+    they are, or a simulated HiFi BAM's records cut into 0xFF00-byte
+    blocks at zlib level 1 (as the benchmark's corpus writes them); with
+    ``phred`` the records get Phred qualities (:func:`with_phred`) and
+    the blocks zlib level ``PHRED_LEVEL``, and the batch ends where its
+    compressed bytes would pass ``CARD_IN_CAP``. Returns (src, meta,
+    zlib's output) with the payloads packed at 4-byte boundaries."""
+    from cutesv_tpu_torch.tools.simulate import simulate
+
+    if path is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            # ~1.5 bytes a base: enough records for the batch
+            mb = max(1.0, n_blocks * BGZF_BLOCK / 1.5 / 5 / 1e6 * 1.2)
+            sim = simulate(os.path.join(tmp, "k"), genome_mb=mb, n_chroms=1,
+                           coverage=5, read_len=15_000, seed=11)
+            raw, _ = inflate.inflate_plain(*inflate.bgzf_batch(sim["bam"]))
+        raw = raw.tobytes()[:n_blocks * BGZF_BLOCK]
+        if phred:
+            raw = with_phred(raw)
+        streams, n_in = [], 0
+        for i in range(0, len(raw), BGZF_BLOCK):
+            co = zlib.compressobj(PHRED_LEVEL if phred else 1,
+                                  zlib.DEFLATED, -15)
+            st = co.compress(raw[i:i + BGZF_BLOCK]) + co.flush()
+            n_in += len(st)
+            if phred and streams and n_in > CARD_IN_CAP:
+                break
+            streams.append(st)
+    else:
+        data, meta = inflate.bgzf_batch(path)
+        streams = [data[s:s + c] for s, c, _, _ in meta[:n_blocks].tolist()]
+    src, rows, out = bytearray(), [], 0
+    want = []
+    for st in streams:
+        raw = zlib.decompress(st, wbits=-15)
+        rows.append((len(src), len(st), out, len(raw)))
+        src += st + bytes(-len(st) % 4)
+        out += len(raw)
+        want.append(raw)
+    return bytes(src), np.asarray(rows, np.int32), b"".join(want)
+
+
+def bench_inflate(device: torch.device, rtt: float, reps: int,
+                  n_blocks: int = N_BLOCKS, path: str = None,
+                  phred: bool = False) -> dict:
+    """The BGZF inflate over one batch: zlib on one host core (best of
+    3), the bare kernel on resident tensors (the plain version on a CPU
+    device; CUDA events), the batch's compressed bytes up and inflated
+    bytes down between pinned host memory and the card (CUDA events; the
+    decoder's path moves exactly these), against the byte floor (the
+    compressed bytes read once and the output written once at the HBM
+    rate); ``equal`` holds the kernel's bytes to zlib's."""
+    src, meta, want = inflate_inputs(n_blocks, path, phred)
+    n_in, n_out = len(src), len(want)
+    zlib_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for s, c, _, _ in meta.tolist():
+            zlib.decompress(src[s:s + c], wbits=-15)
+        zlib_s = min(zlib_s, time.perf_counter() - t0)
+    rec = {"blocks": len(meta), "in_bytes": n_in, "out_bytes": n_out,
+           "zlib_1core_s": zlib_s}
+    if device.type == "cpu":
+        out, status = inflate.inflate_plain(src, meta)
+
+        def bare(i):
+            return torch.from_numpy(inflate.inflate_plain(src, meta)[1]).sum()
+        rec.update(h2d_s=None, d2h_s=None)
+    else:
+        srct = torch.frombuffer(bytearray(src), dtype=torch.uint8).to(device)
+        metat = torch.from_numpy(meta).to(device)
+        outt = torch.empty(n_out, dtype=torch.uint8, device=device)
+
+        def bare(i):
+            _, st = inflate.inflate_tensors(srct, metat, outt)
+            return st.sum(dtype=torch.int64) + outt[i % n_out]
+        out, status = inflate.inflate_tensors(srct, metat)
+        out, status = out.cpu().numpy(), status.cpu().numpy()
+        pin_in = torch.frombuffer(bytearray(src), dtype=torch.uint8) \
+            .pin_memory()
+        pin_out = torch.empty(n_out, dtype=torch.uint8).pin_memory()
+        for key, dst, frm in (("h2d_s", srct, pin_in),
+                              ("d2h_s", pin_out, outt)):
+            best = float("inf")
+            for _ in range(3):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                dst.copy_(frm, non_blocking=True)
+                b.record()
+                b.synchronize()
+                best = min(best, a.elapsed_time(b) / 1e3)
+            rec[key] = best
+    bare_s = max(_timed(bare, device, reps) - rtt, 1e-9)
+    bound_ms = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
+    rec.update(bare_s=bare_s, out_bytes_per_s=n_out / bare_s,
+               bound_ms=bound_ms, bound_by="bytes",
+               bare_efficiency_vs_bound=bound_ms / 1e3 / bare_s,
+               zlib_out_bytes_per_s=n_out / zlib_s,
+               equal=bool(not status.any() and out.tobytes() == want))
+    return rec
+
+
 def run(device=None, reps: int = REPS, n_rows: int = N_ROWS,
-        n_reads: int = N_READS, n_sv: int = N_SV) -> dict:
+        n_reads: int = N_READS, n_sv: int = N_SV,
+        n_blocks: int = N_BLOCKS) -> dict:
     """Every measurement on ``device`` (CUDA unless the caller asks for
     the CPU); the JSON record."""
     device = resolve_device(device)
@@ -354,6 +511,9 @@ def run(device=None, reps: int = REPS, n_rows: int = N_ROWS,
             res["vs_sort_roofline"] = res["rows_per_s"] / sort_rows_per_s
             out[key] = res
         out["cover"] = bench_cover(n_sv, n_reads, device, rtt, reps)
+        out["inflate"] = bench_inflate(device, rtt, reps, n_blocks)
+        out["inflate_phred"] = bench_inflate(device, rtt, reps, n_blocks,
+                                             phred=True)
     out["total_s"] = time.time() - t0
     return out
 
@@ -361,8 +521,9 @@ def run(device=None, reps: int = REPS, n_rows: int = N_ROWS,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="bench_kernels",
-        description="The port's device programs and cover kernel against "
-                    "same-card rooflines; prints one JSON line.")
+        description="The port's device programs, cover kernel and BGZF "
+                    "inflate kernel against same-card rooflines; prints one "
+                    "JSON line.")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; cuda:k pins card k) or cpu")
     args = p.parse_args(argv)
