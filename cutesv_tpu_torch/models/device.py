@@ -738,11 +738,15 @@ def resolve_pair_compact(state):
 def resolve_pair_finish(state, sigs: Sequence, is_inv: bool, chrom: str,
                         read_count: int, max_cluster_bias: int,
                         sv_size: int, max_size: int, action: bool,
-                        names: Optional[Sequence[str]] = None):
+                        names: Optional[Sequence[str]] = None,
+                        clusters_out: Optional[list] = None):
     """Fetch a dispatched pair-cluster program and emit candidates;
-    identical outputs to models.host.resolve_dup / resolve_inv."""
+    identical outputs to models.host.resolve_dup / resolve_inv. A
+    ``clusters_out`` list receives the number of cluster slices walked."""
     kind, payload = state
     slices = payload if kind == "done" else _pair_cluster_finish(payload)
+    if clusters_out is not None:
+        clusters_out.append(len(slices))
     render = (lambda k: names[k]) if names is not None else (lambda k: k)
     candidates: List[list] = []
     gt_jobs: List[dict] = []
@@ -802,16 +806,20 @@ def resolve_tra_finish(state, sigs: Sequence, chr_1: str, read_count: int,
                        overlap_size: float, max_cluster_bias: int,
                        tables, chrom_lengths, action: bool, gt_round: int,
                        names: Optional[Sequence[str]] = None,
-                       jobs_out: Optional[list] = None):
+                       jobs_out: Optional[list] = None,
+                       clusters_out: Optional[list] = None):
     """Fetch a dispatched TRA cluster program and emit candidates;
     identical outputs to models.host.resolve_tra (the emission half is
     the shared _tra_emit_clusters). With ``jobs_out`` the genotype is
     left to the caller's batched cover pass (pipeline._tra_cover_prepare)
-    and the jobs are appended there."""
+    and the jobs are appended there. A ``clusters_out`` list receives
+    the number of cluster slices walked."""
     if state is None:
         return []
     kind, payload, (p1, p2, rid) = state
     slices = payload if kind == "done" else _pair_cluster_finish(payload)
+    if clusters_out is not None:
+        clusters_out.append(len(slices))
     if not slices:
         return []
     order_rows = np.concatenate(slices)

@@ -875,7 +875,10 @@ def _batched_cover_multi(specs, store, cover_fn=None,
     Each sink(counts) receives its windows' counts.
 
     The pass is the span ``genotype``, each flush the span
-    ``genotype.flush`` (its windows, reads and kernel launches)."""
+    ``genotype.flush`` (its windows, reads and kernel launches, and among
+    its windows those of the DUP/INV two-window specs, ``windows_pair``,
+    and of the extra blocks, ``windows_tra``; an extra block counted on
+    the host rides no flush)."""
     with trace.span("genotype"):
         cover = cover_fn or cover_counts
         state = dict(offset=0, windows=[], starts=[], ends=[], spans=[],
@@ -886,8 +889,15 @@ def _batched_cover_multi(specs, store, cover_fn=None,
                 wins = state["windows"]
                 starts = np.concatenate(state["starts"])
                 launches = cover_ops.LAUNCHES
+                # the DUP/INV specs' windows (two breakpoints and their
+                # hull a job) and the TRA extra blocks' windows
+                pair = sum(m for si, _, ranges in state["spans"]
+                           if specs[si][1] is _two_window_groups
+                           for _, m in ranges)
+                tra = sum(m for _, m, _ in state["extras"])
                 with trace.span("genotype.flush", windows=len(wins),
-                                reads=len(starts)) as fc:
+                                reads=len(starts), windows_pair=pair,
+                                windows_tra=tra) as fc:
                     allc = cover(wins, starts, np.concatenate(state["ends"]))
                     fc["launches"] = cover_ops.LAUNCHES - launches
                 for si, chrom, ranges in state["spans"]:
@@ -1242,7 +1252,16 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
     the cluster programs of every chromosome without an early program run
     on gap-aligned cuts, one per device, and each cover flush launches
     once per device's slice of its windows.
-    "host": the numpy oracle for every type, host cover counts."""
+    "host": the numpy oracle for every type, host cover counts.
+
+    Counters: ``resolve.pair`` has, per type, the signatures in
+    (``sigs_DUP``, ``sigs_INV``), the cluster slices the device engine's
+    host finish walks (``clusters_DUP``, ``clusters_INV``) and the
+    candidates out (``records_DUP``, ``records_INV``); the first
+    ``resolve.tra`` the same of TRA (``sigs``, ``clusters``,
+    ``records``), the second (the TRA genotypes' finalize, after the
+    cover pass) none. The host engine walks no cluster slices, so its
+    spans carry no ``clusters`` counters."""
     device = resolve_device(device)
     devices = _shard_plan(cfg, device, shard_devices)
     shard = dict(n_shards=len(devices) if devices else 1,
@@ -1346,14 +1365,15 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
                     min_sup5, cfg.remain_reads_ratio, action, names=names)
                 for chrom, sigs in sig["INS"].items()}
         cover_fn = None
-    with trace.span("resolve.pair"):
+    with trace.span("resolve.pair") as counters:
         inv_res, dup_res = {}, {}
+        walked = {"INV": [], "DUP": []}
         for chrom, sigs in sig["INV"].items():
             if use_device:
                 inv_res[chrom] = device_models.resolve_pair_finish(
                     inv_states[chrom], sigs, True, chrom, cfg.min_support,
                     cfg.max_cluster_bias_INV, cfg.min_size, cfg.max_size,
-                    action, names=names)
+                    action, names=names, clusters_out=walked["INV"])
             else:
                 inv_res[chrom] = host_models.resolve_inv(
                     sigs, chrom, cfg.min_support, cfg.max_cluster_bias_INV,
@@ -1363,11 +1383,17 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
                 dup_res[chrom] = device_models.resolve_pair_finish(
                     dup_states[chrom], sigs, False, chrom, cfg.min_support,
                     cfg.max_cluster_bias_DUP, cfg.min_size, cfg.max_size,
-                    action, names=names)
+                    action, names=names, clusters_out=walked["DUP"])
             else:
                 dup_res[chrom] = host_models.resolve_dup(
                     sigs, chrom, cfg.min_support, cfg.max_cluster_bias_DUP,
                     cfg.min_size, cfg.max_size, action, names=names)
+        for svtype, res in (("DUP", dup_res), ("INV", inv_res)):
+            counters["sigs_" + svtype] = sum(map(len, sig[svtype].values()))
+            if use_device:
+                counters["clusters_" + svtype] = sum(walked[svtype])
+            counters["records_" + svtype] = sum(len(r[0])
+                                                for r in res.values())
     # TRA resolution happens BEFORE the cover pass so its genotype
     # windows ride the same kernel launch (candidates and logs still emit
     # in the reference's DEL, INS, INV, DUP, TRA order below)
@@ -1376,7 +1402,8 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
     tra_out: Dict[str, list] = {}
     tra_finalize = None
     tra_blocks = []
-    with trace.span("resolve.tra"):
+    with trace.span("resolve.tra") as counters:
+        walked_tra: List[int] = []
         for chrom, sigs_t in sig["TRA"].items():
             if use_device:
                 jobs_t: Optional[list] = [] if tra_batch else None
@@ -1384,7 +1411,8 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
                     tra_states.get(chrom), sigs_t, chrom, cfg.min_support,
                     cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
                     store.read_tables, store.chrom_lengths, action,
-                    cfg.gt_round, names=names, jobs_out=jobs_t)
+                    cfg.gt_round, names=names, jobs_out=jobs_t,
+                    clusters_out=walked_tra)
                 if tra_batch:
                     tra_res[chrom] = (tra_out[chrom], jobs_t)
             else:
@@ -1393,6 +1421,10 @@ def resolve_all(store: sigstore.SigStore, cfg: Config, device=None,
                     cfg.diff_ratio_filtering_TRA, cfg.max_cluster_bias_TRA,
                     store.read_tables, store.chrom_lengths, action,
                     cfg.gt_round, names=names)
+        counters["sigs"] = sum(map(len, sig["TRA"].values()))
+        if use_device:
+            counters["clusters"] = sum(walked_tra)
+        counters["records"] = sum(map(len, tra_out.values()))
         if tra_batch:
             tra_blocks, tra_finalize = _tra_cover_prepare(tra_res, store,
                                                           cfg)
