@@ -79,6 +79,8 @@ def get_lib() -> ctypes.CDLL:
     lib.bamdecode_start.argtypes = lib.bamdecode_run.argtypes
     lib.bamdecode_poll.restype = ctypes.c_int32
     lib.bamdecode_poll.argtypes = [vp]
+    lib.bamdecode_wait.restype = ctypes.c_int32
+    lib.bamdecode_wait.argtypes = [vp, ctypes.c_int32, i64]
     lib.bamdecode_n_refs.restype = ctypes.c_int32
     lib.bamdecode_n_refs.argtypes = [vp]
     lib.bamdecode_range_refids.restype = None
@@ -410,6 +412,13 @@ class StreamingDecode:
         """refID currently being decoded (chroms below it are complete
         modulo late SA rows); DONE when the run has finished."""
         return int(self._lib.bamdecode_poll(self._handle))
+
+    def wait(self, seen: int, timeout_ms: int) -> int:
+        """poll() once it has passed ``seen`` (or is DONE), or after
+        ``timeout_ms`` whatever it is. Sleeps in the decoder, on a
+        condition variable that every progress store signals, with the GIL
+        released."""
+        return int(self._lib.bamdecode_wait(self._handle, seen, timeout_ms))
 
     def n_refs(self) -> int:
         """Header reference count; valid once poll() returned >= 0

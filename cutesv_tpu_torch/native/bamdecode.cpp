@@ -11,10 +11,10 @@
 //
 // A BAM's BGZF blocks inflate where the decode's device is: given the
 // card back end (a CardInflate table from cutesv_tpu_torch/csrc/
-// bgzf_inflate.cu, passed in by io/native.py for a CUDA device), batches
-// of blocks inflate on the card while this thread parses the batch before,
-// and no zlib thread runs; without it, a pool of zlib threads inflates
-// them (a CPU device). A CRAM's blocks, and a bgzipped FASTA's, always use
+// bgzf_inflate.cu, passed in by io/native.py for a CUDA device), a
+// submitter thread stages and launches batches of blocks on the card while
+// this thread parses the batch before, and no zlib thread runs; without
+// it, a pool of zlib threads inflates them (a CPU device). A CRAM's blocks, and a bgzipped FASTA's, always use
 // zlib. This file includes no CUDA header: the card is reached only
 // through the table's C functions.
 //
@@ -873,6 +873,7 @@ struct BgzfChunkReader {
       pool.emplace_back([this]() { pool_main(); });
   }
   ~BgzfChunkReader() {
+    stop_submitter();  // before the back end is released
     if (rat.joinable()) rat.join();
     finish_raw();  // a pending async job writes into caller-owned memory
     if (card) note_card(card->release(card->ctx));  // waits for all
@@ -1003,6 +1004,14 @@ struct BgzfChunkReader {
   // caller in that order (``card_handed``; finish_raw waits for the last
   // one handed out). A lane is free once its batch is fetched, a slot once
   // the caller is done with its batch.
+  //
+  // From the caller's first card_next_raw on, a submitter thread reads,
+  // stages and launches the batches (sub_main) while the caller fetches,
+  // waits for and parses them: the two meet in ``card_flight`` under
+  // ``sub_mu``. A lane's batch (``card_chunks[k]``) is the submitter's
+  // until it is in flight, then the caller's until it is fetched; the
+  // reader's position in the input (``map_pos``, ``eof``, ``truncated``,
+  // the FILE) is the submitter's until stop_submitter has joined it.
   const CardInflate* card = nullptr;
   std::vector<Chunk> card_chunks;     // each lane's batch
   std::deque<int> card_flight;        // lanes submitted, not yet fetched
@@ -1013,8 +1022,15 @@ struct BgzfChunkReader {
   int64_t card_seq = 0;               // batches submitted
   int card_pending = -1;              // the handed slot not yet waited for
   std::vector<uint32_t> card_meta;
-  int card_err = 0;                   // the back end's first CUDA error
+  std::atomic<int> card_err{0};       // the back end's first CUDA error
   int64_t card_bad = 0;               // blocks that did not inflate
+  std::thread sub;                    // the submitter
+  bool sub_started = false;
+  std::mutex sub_mu;
+  std::condition_variable sub_cv;     // a batch in flight, a lane freed,
+                                      // the submitter's end or its stop
+  bool sub_stop = false;              // the caller ends the submitter
+  bool sub_end = false;               // the submitter submits no more
 
   // The next batch for the card: up to max_blocks blocks whose payloads
   // span at most in_cap bytes (a single block always fits).
@@ -1040,7 +1056,8 @@ struct BgzfChunkReader {
 
   void note_card(int err) {
     if (err == 0) return;
-    if (card_err == 0) card_err = err;
+    int none = 0;
+    card_err.compare_exchange_strong(none, err);
     inflate_bad.store(true, std::memory_order_relaxed);
   }
 
@@ -1086,25 +1103,70 @@ struct BgzfChunkReader {
     blocks_card += (int64_t)card_slot_blocks[j];
   }
 
-  // Fetch the oldest batches into the free slots and fill the free lanes.
-  void card_top_up() {
+  // The submitter: keeps every lane busy, reading, staging and launching
+  // the batches in order until the input ends or the caller stops it.
+  void sub_main() {
     for (;;) {
-      bool moved = false;
+      int k;
+      {
+        std::unique_lock<std::mutex> lk(sub_mu);
+        sub_cv.wait(lk, [&] {
+          return sub_stop || (int)card_flight.size() < card->lanes;
+        });
+        if (sub_stop) break;
+        k = (int)(card_seq % card->lanes);
+      }
+      const bool more = !eof && card_submit(k);
+      {
+        std::lock_guard<std::mutex> lk(sub_mu);
+        if (more) {
+          card_seq++;
+          card_flight.push_back(k);
+        } else {
+          sub_end = true;
+        }
+      }
+      sub_cv.notify_all();
+      if (!more) break;
+    }
+  }
+
+  // Joins the submitter (a no-op without one); after it the caller owns
+  // the reader's position and counters again.
+  void stop_submitter() {
+    if (!sub.joinable()) return;
+    {
+      std::lock_guard<std::mutex> lk(sub_mu);
+      sub_stop = true;
+    }
+    sub_cv.notify_all();
+    sub.join();
+  }
+
+  // Fetch the oldest batches in flight into the free slots, waiting for the
+  // submitter while none is fetched and the input has not ended. A fetch
+  // frees its lane, so it happens under the lock, before the submitter may
+  // reuse the lane.
+  void card_top_up() {
+    if (!sub_started) {
+      sub_started = true;
+      sub = std::thread([this]() { sub_main(); });
+    }
+    std::unique_lock<std::mutex> lk(sub_mu);
+    for (;;) {
+      bool freed = false;
       for (int j = 0; j < card->slots && !card_flight.empty(); j++) {
         if (card_slot_busy[j]) continue;
         card_fetch(card_flight.front(), j);
         card_flight.pop_front();
         card_ready.push_back(j);
-        moved = true;
+        freed = true;
       }
-      while (!eof && (int)card_flight.size() < card->lanes) {
-        const int k = (int)(card_seq % card->lanes);
-        if (!card_submit(k)) break;
-        card_seq++;
-        card_flight.push_back(k);
-        moved = true;
-      }
-      if (!moved) return;
+      if (freed) sub_cv.notify_all();
+      if (!card_ready.empty() || sub_stop
+          || (sub_end && card_flight.empty()))
+        return;
+      sub_cv.wait(lk);
     }
   }
 
@@ -1855,6 +1917,29 @@ struct Decoder {
   // record-order rows merged). INT32_MAX once the run is complete.
   std::mutex snap_mu;
   std::atomic<int32_t> progress{-1};
+  // every store to ``progress`` signals prog_cv (publish_progress), which
+  // bamdecode_wait sleeps on
+  std::mutex prog_mu;
+  std::condition_variable prog_cv;
+
+  void publish_progress(int32_t v) {
+    {
+      std::lock_guard<std::mutex> lk(prog_mu);
+      progress.store(v, std::memory_order_release);
+    }
+    prog_cv.notify_all();
+  }
+
+  // The progress once it passes ``seen`` (or is DONE), or after
+  // ``timeout_ms`` whatever it is.
+  int32_t wait_progress(int32_t seen, int64_t timeout_ms) {
+    std::unique_lock<std::mutex> lk(prog_mu);
+    prog_cv.wait_for(lk, std::chrono::milliseconds(timeout_ms), [&] {
+      const int32_t p = progress.load(std::memory_order_acquire);
+      return p > seen || p == INT32_MAX;
+    });
+    return progress.load(std::memory_order_acquire);
+  }
   // first/last refid actually merged — under a byte range these name the
   // possibly-partial boundary chromosomes (the python side excludes them
   // from mid-decode tails; census/sig completeness cannot be assumed)
@@ -2040,7 +2125,7 @@ struct Decoder {
         if (r >= 0) { refid = r; break; }
       }
       int32_t cur = progress.load(std::memory_order_relaxed);
-      if (refid > cur) progress.store(refid, std::memory_order_release);
+      if (refid > cur) publish_progress(refid);
       if (refid >= 0) last_ref.store(refid, std::memory_order_release);
       if (first_ref.load(std::memory_order_relaxed) < 0) {
         for (auto& rr : recs) {  // first MAPPED record of the range
@@ -2066,13 +2151,15 @@ struct Decoder {
     RawBuf A, B;
     BgzfChunkReader rd(f, (int)P.n_threads, card);
     auto take_counters = [&]() {
+      rd.stop_submitter();
       inflate_core_s = rd.inflate_core_ns.load() * 1e-9;
       blocks_card = rd.blocks_card;
       blocks_host = rd.blocks_host.load();
       batches_card = rd.card_seq;
       launches_card = card ? card->launched(card->ctx) : 0;
-      if (rd.card_err != 0)
-        err_msg = "card inflate: CUDA error " + std::to_string(rd.card_err);
+      if (rd.card_err.load() != 0)
+        err_msg = "card inflate: CUDA error "
+                  + std::to_string(rd.card_err.load());
       else if (rd.card_bad != 0)
         err_msg = "card inflate: " + std::to_string(rd.card_bad)
                   + " BGZF blocks did not inflate to their size";
@@ -2215,7 +2302,7 @@ struct Decoder {
       }
       // test-only pacing knob: lets streaming-overlap tests observe
       // per-chromosome completion deterministically on corpora that
-      // would otherwise decode faster than the python poll interval
+      // would otherwise decode before the python loop takes a chromosome
       static const int chunk_delay_ms =
           getenv("CUTESV_DECODE_CHUNK_DELAY_MS")
               ? atoi(getenv("CUTESV_DECODE_CHUNK_DELAY_MS")) : 0;
@@ -2254,6 +2341,7 @@ struct Decoder {
     }
     walk_t1_ns = epoch_ns();
     t_records = (walk_t1_ns - walk_t0_ns) * 1e-9;
+    rd.stop_submitter();  // it owns the end-of-input flags until joined
     if (rd.truncated || rd.inflate_bad.load(std::memory_order_relaxed))
       return bail(5);
     take_counters();
@@ -2489,7 +2577,7 @@ CResult* bamdecode_run(const char* path, const char* ref_path,
                                n_bed, card, &is_cram);
   Decoder* d = r->dec;
   r->status = run_guarded(*d, path, ref_path, is_cram);
-  d->progress.store(INT32_MAX, std::memory_order_release);
+  d->publish_progress(INT32_MAX);
   // finalize only successful runs (results are never extracted on a
   // nonzero status), and never let its throw cross the extern "C"
   // boundary
@@ -2521,7 +2609,7 @@ CResult* bamdecode_start(const char* path, const char* ref_path,
   r->th = new std::thread([r, d, p, rp, has_ref, is_cram]() {
     r->status = run_guarded(*d, p.c_str(),
                             has_ref ? rp.c_str() : nullptr, is_cram);
-    d->progress.store(INT32_MAX, std::memory_order_release);
+    d->publish_progress(INT32_MAX);
     // finalize (rank sorts) on THIS thread: it overlaps the caller's
     // DONE-batch python work instead of serializing inside join().
     // Safe: the collector is immutable once run() returns (snapshots
@@ -2547,6 +2635,14 @@ CResult* bamdecode_start(const char* path, const char* ref_path,
 // INT32_MAX once decoding is finished.
 int32_t bamdecode_poll(CResult* r) {
   return r->dec->progress.load(std::memory_order_acquire);
+}
+
+// bamdecode_poll once the progress has passed ``seen`` or the decode is
+// finished, whichever comes first, or after ``timeout_ms``: the caller
+// sleeps until there is a chromosome to take. ctypes releases the GIL for
+// the call.
+int32_t bamdecode_wait(CResult* r, int32_t seen, int64_t timeout_ms) {
+  return r->dec->wait_progress(seen, timeout_ms);
 }
 
 // number of header reference sequences; valid once poll() has returned

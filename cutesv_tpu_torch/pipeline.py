@@ -28,7 +28,6 @@ import functools
 import logging
 import os
 import threading
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -236,6 +235,11 @@ def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
     return (cands, [])
 
 
+# the poll loop's longest sleep in the decoder: a guard against a lost
+# wake-up only, since every progress store wakes it
+_WAIT_GUARD_MS = 100
+
+
 def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
                          allow_done_tail: bool = True):
     """Poll/dispatch loop of the streaming decode paths: as each
@@ -253,11 +257,15 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
     final batch (never under a byte range: the range-end chromosome's
     census may be cut by the budget).
 
+    Between passes the loop sleeps in the decoder until the next
+    chromosome completes (``sd.wait``), so none waits undispatched.
+
     Spans: ``decode.dispatch`` around each chromosome's snapshot,
-    prepare and program dispatch, around each program's compaction
-    (which waits on the device for its count) and around the DONE
-    batch's prefetch of the counts; ``decode.tail`` around each full
-    tail; the DONE batch's spans carry the counter ``done`` = 1.
+    prepare and program dispatch (counter ``chroms`` = 1), around each
+    program's compaction (which waits on the device for its count) and
+    around the DONE batch's prefetch of the counts; ``decode.tail``
+    around each full tail; the DONE batch's spans carry the counter
+    ``done`` = 1.
 
     Returns (handles, fingerprints, early_results), each keyed
     (svtype, chrom_id)."""
@@ -342,8 +350,8 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
         else:
             handles[(svtype, c)] = nk_comp
 
+    p = sd.poll()
     while True:
-        p = sd.poll()
         finished = p == sd.DONE
         if tail_ok is None and (finished or p >= 0):
             tail_ok = tail_pref and (
@@ -360,7 +368,7 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
             if c in done:
                 continue
             done.add(c)
-            with trace.span("decode.dispatch", done=int(finished)):
+            with trace.span("decode.dispatch", done=int(finished), chroms=1):
                 pending += dispatch(c)
         if finished and pending:
             # decode is over, so blocking reads are no longer hidden:
@@ -374,7 +382,7 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
             finish(item, nk_comp, finished)
         if finished:
             return handles, fingerprints, early_results
-        time.sleep(0.02)
+        p = sd.wait(p, _WAIT_GUARD_MS)
 
 
 def _attach_early_to_store(store, nd, handles, fingerprints,

@@ -567,7 +567,7 @@ def test_two_process_streaming_tails_equal_jax(tmp_path):
     want = _jax_body(tmp_path, base, extra, "tails")
     assert sum(1 for l in want if not l.startswith("#")) >= 4
     tails = 0
-    # a loaded host can starve the 20 ms poll past every chunk: one retry
+    # a loaded host can starve the poll loop past every chunk: one retry
     # with a slower pace before calling it a failure
     for attempt, delay_ms in enumerate((80, 250)):
         tag = "st%d_" % attempt
