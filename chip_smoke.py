@@ -29,9 +29,9 @@ result line:
   e2e    simulates a 100 Mb, 4-chromosome, 20x, 20 kb-read corpus with
          planted DEL/INS every 50 kb and drives the CLI entry point
          (--genotype -s 5) four times: native decoder on cuda (the main
-         path: the streaming decode, on by default with 2+ usable
-         cores), the same with CUTESV_STREAM_DISPATCH=0, native on cpu,
-         python decoder on cuda. The main path must have streamed and
+         path: the streaming decode, which the device engine takes), the
+         same decoding plainly (pipeline.stream_rule substituted), native
+         on cpu, python decoder on cuda. The main path must have streamed and
          launched the cover kernel at least once and at most once per
          1e9-bp flush, the VCF bodies must be equal byte for byte, and
          >= 99% of the planted sites must be called (type, <= 200 bp);
@@ -688,22 +688,21 @@ def alltypes_recall(truth_bed: str, vcf_path: str, tol: int = 1_000):
 
 
 # the e2e runs over the 100 Mb corpus: (tag, decoder, device, extra CLI
-# arguments, environment); the first is the main path (streaming decode
-# by default on a host with 2+ usable cores)
+# arguments, whether the decode is plain); the first is the main path
+# (the streaming decode, which the device engine takes)
 E2E_RUNS = (
-    ("native_cuda", "native", "cuda", [], {}),
-    ("native_cuda_plain", "native", "cuda", [],
-     {"CUTESV_STREAM_DISPATCH": "0"}),
-    ("native_cpu", "native", "cpu", [], {}),
-    ("python_cuda", "python", "cuda", [], {}),
+    ("native_cuda", "native", "cuda", [], False),
+    ("native_cuda_plain", "native", "cuda", [], True),
+    ("native_cpu", "native", "cpu", [], False),
+    ("python_cuda", "python", "cuda", [], False),
 )
 # the all-types runs: the main path, its plain version on the CPU, and
 # the host engine (the oracle the JAX package documents as
 # byte-identical)
 ALLTYPES_RUNS = (
-    ("native_cuda", "native", "cuda", [], {}),
-    ("native_cpu", "native", "cpu", [], {}),
-    ("host_engine_cuda", "native", "cuda", ["--engine", "host"], {}),
+    ("native_cuda", "native", "cuda", [], False),
+    ("native_cpu", "native", "cpu", [], False),
+    ("host_engine_cuda", "native", "cuda", ["--engine", "host"], False),
 )
 ALLTYPES_MB = 64          # tools/simulate.py::replay's window cap
 ALLTYPES_SPACING = 20_000
@@ -713,10 +712,11 @@ ALLTYPES_GENOME_BP = ALLTYPES_MB * 1_000_000 + 2 * 500_000
 FLUSH_BP = 1_000_000_000  # pipeline._FLUSH_BP: one cover launch at most
 
 
-def _drive(tag: str, argv: list, device: str, env: dict,
+def _drive(tag: str, argv: list, device: str, plain: bool = False,
            shard_devices=None) -> dict:
     """One CLI run with the launch counts set to 0 just before it and
-    read just after; ``env`` is set for the run only. With
+    read just after; ``plain``: the run's decode does not stream (the
+    pipeline's streaming rule is substituted for the run only). With
     ``shard_devices`` the parsed arguments go to ``run_pipeline`` with
     that shard device list (the CLI has no flag for it)."""
     from cutesv_tpu_torch import cli, pipeline
@@ -728,8 +728,10 @@ def _drive(tag: str, argv: list, device: str, env: dict,
         parser = cli.build_parser()
         cfg = cli.args_to_config(parser.parse_args(argv),
                                  explicit=cli._explicit_dests(parser, argv))
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    rule = pipeline.stream_rule
+    if plain:
+        pipeline.stream_rule = lambda *a, **k: pipeline.StreamRule(False,
+                                                                   False)
     try:
         cover.LAUNCHES = 0
         cover.LAST_SHAPE = (0, 0)
@@ -744,11 +746,7 @@ def _drive(tag: str, argv: list, device: str, env: dict,
         stats = dict(stats, launches=cover.LAUNCHES,
                      shape=list(cover.LAST_SHAPE), wall_s=time.time() - t1)
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        pipeline.stream_rule = rule
     core = ""
     if "walk_s" in stats:
         core = (" (decoder walk %.3f s, inflate %.3f core-s, records %.3f "
@@ -805,12 +803,12 @@ def _fresh(prefix: str, tag: str) -> tuple:
 def _runs(prefix: str, bam: str, fa: str, table, min_support: int) -> dict:
     """Every run of ``table`` over one corpus: {tag: (vcf path, stats)}."""
     runs = {}
-    for tag, decoder, device, extra, env in table:
+    for tag, decoder, device, extra, plain in table:
         out, wd = _fresh(prefix, tag)
         stats = _drive("%s %s" % (prefix, tag),
                        [bam, fa, out, wd, "--genotype", "-s",
                         str(min_support), "--decoder", decoder] + extra,
-                       device, env)
+                       device, plain)
         if stats["decoder"] != decoder:
             raise AssertionError("%s %s ran the %s decoder"
                                  % (prefix, tag, stats["decoder"]))
@@ -857,7 +855,7 @@ def phase_e2e(res: dict) -> None:
     if not main.get("streaming") or runs["native_cuda_plain"][1].get(
             "streaming"):
         raise AssertionError("the default run did not stream, or the "
-                             "CUTESV_STREAM_DISPATCH=0 run did")
+                             "plain run did")
     _check_main("e2e", main, int(E2E_MB * 1e6))
     if not main["blocks_card"]:
         raise AssertionError("the e2e main path inflated no BGZF block on "
@@ -1003,7 +1001,7 @@ def phase_cram(res: dict) -> None:
         out, wd = _fresh("cram", tag)
         stats = _drive("cram %s native_cuda" % tag,
                        [cram, corpus["fa"], out, wd, "--genotype", "-s", "5",
-                        "--decoder", "native"], "cuda", {})
+                        "--decoder", "native"], "cuda")
         if stats["decoder"] != "native":
             raise AssertionError("cram %s ran the %s decoder"
                                  % (tag, stats["decoder"]))
@@ -1059,7 +1057,7 @@ def phase_forcecall(res: dict) -> None:
         out, wd = _fresh("forcecall", tag)
         stats = _drive("forcecall %s" % tag,
                        [corpus[kind], corpus["fa"], out, wd, "-Ivcf",
-                        corpus["vcf"], "--genotype"], "cuda", {})
+                        corpus["vcf"], "--genotype"], "cuda")
         if stats["decoder"] != "native":
             raise AssertionError("forcecall %s ran the %s decoder"
                                  % (tag, stats["decoder"]))
@@ -1390,7 +1388,7 @@ def _shard_main_paths(res: dict, two: list) -> None:
         out, wd = _fresh("shards", tag)
         stats = _drive("shards %s n_shards=2" % tag,
                        [corpus["bam"], corpus["fa"], out, wd, "--genotype",
-                        "-s", "5", "--n_shards", "2"], "cuda", {},
+                        "-s", "5", "--n_shards", "2"], "cuda",
                        shard_devices=two)
         if _body(out) != _body(corpus["vcf"]):
             raise AssertionError("shards %s: the --n_shards 2 body differs "
@@ -1433,7 +1431,7 @@ def _shard_cli(res: dict) -> None:
     try:
         stats = _drive("shards cli n_shards=2", [
             corpus["bam"], corpus["fa"], out, wd, "--genotype", "-s", "5",
-            "--n_shards", "2"], "cuda", {})
+            "--n_shards", "2"], "cuda")
     finally:
         logger.removeHandler(records)
     if _body(out) != _body(corpus["vcf"]):
@@ -1733,7 +1731,7 @@ def phase_profile(res: dict) -> None:
     out, wd = _fresh("profile", "alltypes")
     stats = _drive("profile alltypes native_cuda",
                    [corpus["bam"], corpus["fa"], out, wd, "--genotype", "-s",
-                    "5", "--decoder", "native", "--profile"], "cuda", {})
+                    "5", "--decoder", "native", "--profile"], "cuda")
     if _body(out) != _body(corpus["vcf"]):
         raise AssertionError("profile: the VCF body differs from the main "
                              "path's")

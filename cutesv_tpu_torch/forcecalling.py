@@ -481,15 +481,14 @@ def force_call(cfg, argv, store=None, device=None) -> dict:
     if store is None:
         from cutesv_tpu_torch.pipeline import decode_bam
 
-        store, _, references, n_records = decode_bam(
-            cfg, resolve_device(device))
+        store, _, n_records = decode_bam(cfg, resolve_device(device))
         breakdown = store.decode_breakdown
         decoder = breakdown["decoder"]
     else:
-        references = list(store.chrom_lengths.items())
         n_records = -1  # not decoded here (same sentinel as --resume)
         breakdown = {}
         decoder = "store"
+    references = list(store.chrom_lengths.items())
     t1 = time.time()
     names = store.names
     render = (lambda k: names[k]) if names is not None else (lambda k: k)

@@ -1,11 +1,12 @@
 """ctypes binding for the native BAM/CRAM signature decoder (``native/``).
 
-:func:`decode` runs ``native/bamdecode.cpp`` over a whole BAM, or a CRAM
-with its reference FASTA (the CRAM front end of ``cramdecode.inc``), and
-returns the same logical content as the Python decoder's signature
-extraction, as numpy SoA arrays; :class:`StreamingDecode` runs it on a
-native thread and snapshots completed chromosomes while it runs; both
-take the ``byte_range`` of a sharded (``--distributed``) decode;
+:class:`StreamingDecode` runs ``native/bamdecode.cpp`` over a BAM, or a
+CRAM with its reference FASTA (the CRAM front end of ``cramdecode.inc``),
+on the decoder's own thread (its one entry, ``bamdecode_start``),
+snapshots completed chromosomes while it runs and, joined, returns the
+same logical content as the Python decoder's signature extraction, as
+numpy SoA arrays; :func:`decode` starts it and joins; both take the
+``byte_range`` of a sharded (``--distributed``) decode;
 :func:`scan_bgzf_native` lists a BAM's BGZF blocks for the shard plan;
 :func:`block_decode` decodes one CRAM block. The library is built with
 ``g++`` at first use (``ops/build.py::decoder_library``); a failed build
@@ -21,11 +22,12 @@ device: a ``CardInflate`` table of C functions (``csrc/card_inflate.h``:
 acquire, submit a batch, fetch it into a pinned slot, wait, release, and
 the launches made) over buffers made once per process and device
 (``ops/inflate.py::card_table``). Its address goes to
-``bamdecode_run``/``bamdecode_start``; a block that does not inflate to
-its size fails the decode with status 5. The decode reports how many
-blocks each back end inflated (``blocks_card``, ``blocks_host``) and, on
-the card, how many batches the decoder handed the back end and how many
-kernel launches the back end made (``batches_card``, ``launches_card``).
+``bamdecode_start``; a block that does not inflate to its size fails the
+decode with status 5. The decode reports how many blocks each back end
+inflated (``blocks_card``, ``blocks_host``) and, on the card, how many
+batches the decoder handed the back end and how many kernel launches the
+back end made (``batches_card``, ``launches_card``): with the walk's
+core-seconds, the decoder's counters (:data:`COUNTERS`).
 
 Field ids are kept in lockstep with the switch in bamdecode.cpp.
 """
@@ -50,13 +52,11 @@ def get_lib() -> ctypes.CDLL:
         return _lib
     lib = build.decoder_library()
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.bamdecode_run.restype = vp
-    lib.bamdecode_run.argtypes = [
+    lib.bamdecode_start.restype = vp
+    lib.bamdecode_start.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(i64),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(i64),
         ctypes.POINTER(i64), i64, vp]
-    lib.bamdecode_status.restype = ctypes.c_int
-    lib.bamdecode_status.argtypes = [vp]
     lib.bamdecode_n_records.restype = i64
     lib.bamdecode_n_records.argtypes = [vp]
     for fn in ("bamdecode_walk_seconds", "bamdecode_inflate_core_seconds",
@@ -74,9 +74,6 @@ def get_lib() -> ctypes.CDLL:
     lib.bamdecode_get.argtypes = [vp, ctypes.c_int, ctypes.POINTER(vp),
                                   ctypes.POINTER(i64)]
     lib.bamdecode_free.argtypes = [vp]
-    # streaming decode (StreamingDecode)
-    lib.bamdecode_start.restype = vp
-    lib.bamdecode_start.argtypes = lib.bamdecode_run.argtypes
     lib.bamdecode_poll.restype = ctypes.c_int32
     lib.bamdecode_poll.argtypes = [vp]
     lib.bamdecode_wait.restype = ctypes.c_int32
@@ -211,6 +208,18 @@ class NativeDecode:
         return self.ins_seq_blob[off:off + ln].decode("ascii")
 
 
+# the decoder's counters: fields of a NativeDecode, the ``decode.walk``
+# span's counters and keys of the run's stats; the last four are
+# ``bamdecode_blocks``'s, in its order
+COUNTERS = ("inflate_core_s", "records_core_s", "blocks_card", "blocks_host",
+            "batches_card", "launches_card")
+
+
+def counters(nd: NativeDecode) -> Dict[str, float]:
+    """The decoder's counters (:data:`COUNTERS`) of one decode."""
+    return {k: getattr(nd, k) for k in COUNTERS}
+
+
 _FIELDS = {
     "del_chr": 10, "del_pos": 11, "del_len": 12, "del_name": 13,
     "ins_chr": 20, "ins_posx2": 21, "ins_len": 22, "ins_name": 23,
@@ -316,8 +325,6 @@ def _check_status(status: int, path: str, detail: str = ""):
 def _extract(lib, handle, path: str) -> NativeDecode:
     blocks = [ctypes.c_int64() for _ in range(4)]
     lib.bamdecode_blocks(handle, *map(ctypes.byref, blocks))
-    blocks_card, blocks_host, batches_card, launches_card = (
-        b.value for b in blocks)
     name_blob = _fetch(lib, handle, 0)
     name_off = _fetch(lib, handle, 1)
     # one whole-blob decode + str slicing; BAM qnames are ASCII by spec,
@@ -348,9 +355,8 @@ def _extract(lib, handle, path: str) -> NativeDecode:
                             lib.bamdecode_inflate_core_seconds(handle)),
                         records_core_s=float(
                             lib.bamdecode_records_core_seconds(handle)),
-                        blocks_card=blocks_card, blocks_host=blocks_host,
-                        batches_card=batches_card,
-                        launches_card=launches_card)
+                        **dict(zip(COUNTERS[2:],
+                                   (b.value for b in blocks))))
 
 
 def decode(path: str, cfg, bed_ids=None, reference=None,
@@ -365,18 +371,11 @@ def decode(path: str, cfg, bed_ids=None, reference=None,
     containers inside the compressed length (0 = unbounded, -1 = none);
     the result's ``first_u``/``next_u`` are the range's boundary
     offsets for the cross-shard agreement check. ``device``: a CUDA
-    device inflates a BAM's BGZF blocks on the card (:func:`_card`)."""
-    lib = get_lib()
-    params, ref_arg, bc_p, bs_p, be_p, n_bed, _ka = _call_args(
-        cfg, bed_ids, reference, byte_range)
-    handle = lib.bamdecode_run(path.encode(), ref_arg, params, bc_p, bs_p,
-                               be_p, n_bed, _card(device))
-    try:
-        _check_status(lib.bamdecode_status(handle), path,
-                      _err_detail(lib, handle))
-        return _extract(lib, handle, path)
-    finally:
-        lib.bamdecode_free(handle)
+    device inflates a BAM's BGZF blocks on the card (:func:`_card`).
+    A :class:`StreamingDecode` joined without a poll."""
+    with StreamingDecode(path, cfg, bed_ids, reference, byte_range,
+                         device) as sd:
+        return sd.join()
 
 
 _SNAP_FIELDS = ("pos", "length", "name_id", "name_lrank", "seq_len",
@@ -384,14 +383,15 @@ _SNAP_FIELDS = ("pos", "length", "name_id", "name_lrank", "seq_len",
 
 
 class StreamingDecode:
-    """Decode on a native thread; poll per-chromosome completion and
-    snapshot completed chromosomes' rows mid-run, then join for the full
-    NativeDecode. Snapshot name/seq ranks are LOCAL to the snapshot
-    (order-isomorphic to the final global ranks restricted to the same
-    rows); callers must validate a snapshot against the final store
-    before trusting work derived from it (a later read's SA tag can add
-    rows to an already-passed chromosome). Use as a context manager or
-    call :meth:`free`; freeing joins the decode thread."""
+    """Decode on the decoder's thread; poll per-chromosome completion
+    and snapshot completed chromosomes' rows mid-run (or not at all),
+    then join for the full NativeDecode. Snapshot name/seq ranks are
+    LOCAL to the snapshot (order-isomorphic to the final global ranks
+    restricted to the same rows); callers must validate a snapshot
+    against the final store before trusting work derived from it (a
+    later read's SA tag can add rows to an already-passed chromosome).
+    Use as a context manager or call :meth:`free`; freeing joins the
+    decode thread."""
 
     DONE = 2 ** 31 - 1  # INT32_MAX progress sentinel
 

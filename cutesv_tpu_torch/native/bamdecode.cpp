@@ -2441,8 +2441,7 @@ struct CResult {
   int32_t n_header_refs;
   int64_t n_records;
   int status;
-  std::thread* th = nullptr;     // streaming run
-  bool finalized = false;
+  std::thread* th = nullptr;     // the decode's thread
   Snapshot snap;                 // last bamdecode_snapshot result
 };
 
@@ -2501,11 +2500,10 @@ static CResult* bamdecode_setup(const char* path, const int64_t* params,
   return r;
 }
 
+// The rank sorts and the chromosome table of a successful run (the
+// caller turns a throw into status 4; results are only extracted when
+// status == 0).
 static void bamdecode_finalize(CResult* r) {
-  if (r->finalized) return;
-  r->finalized = true;  // set FIRST: a failed attempt must not re-run
-                        // (callers turn a throw into status 4; results
-                        // are only extracted when status == 0)
   Decoder* d = r->dec;
   r->n_records = d->C.n_records;
   // the two rank computations are independent — overlap them (seq_ranks
@@ -2540,7 +2538,6 @@ static void bamdecode_finalize(CResult* r) {
   }
   r->ref_lens = new std::vector<int64_t>(d->ref_lens);
   r->n_header_refs = (int32_t)d->ref_lens.size();
-  r->finalized = true;
 }
 
 // No exception may cross the extern "C"/thread boundary: a malformed
@@ -2566,36 +2563,11 @@ extern "C" const char* bamdecode_err(CResult* r) {
   return r->dec->err_msg.c_str();
 }
 
-// ``card``: a CardInflate (cutesv_inflate_create) that inflates a BAM's
-// BGZF blocks on the card, or null for zlib threads; a CRAM ignores it.
-CResult* bamdecode_run(const char* path, const char* ref_path,
-                       const int64_t* params, const int32_t* bed_chr,
-                       const int64_t* bed_start, const int64_t* bed_end,
-                       int64_t n_bed, const void* card) {
-  bool is_cram = false;
-  CResult* r = bamdecode_setup(path, params, bed_chr, bed_start, bed_end,
-                               n_bed, card, &is_cram);
-  Decoder* d = r->dec;
-  r->status = run_guarded(*d, path, ref_path, is_cram);
-  d->publish_progress(INT32_MAX);
-  // finalize only successful runs (results are never extracted on a
-  // nonzero status), and never let its throw cross the extern "C"
-  // boundary
-  if (r->status == 0) {
-    try {
-      bamdecode_finalize(r);
-    } catch (const std::exception& e) {
-      d->err_msg = e.what();
-      r->status = 4;
-    } catch (...) {
-      r->status = 4;
-    }
-  }
-  return r;
-}
-
-// Streaming variant: decode on a private thread; the caller polls
-// progress, snapshots completed chromosomes, then joins.
+// The decoder's one entry: decode on a thread of its own while the
+// caller polls progress and snapshots completed chromosomes (or does
+// nothing), then joins. ``card``: a CardInflate (cutesv_inflate_create)
+// that inflates a BAM's BGZF blocks on the card, or null for zlib
+// threads; a CRAM ignores it.
 CResult* bamdecode_start(const char* path, const char* ref_path,
                          const int64_t* params, const int32_t* bed_chr,
                          const int64_t* bed_start, const int64_t* bed_end,
@@ -2614,7 +2586,9 @@ CResult* bamdecode_start(const char* path, const char* ref_path,
     // DONE-batch python work instead of serializing inside join().
     // Safe: the collector is immutable once run() returns (snapshots
     // only read it), and join() joins this thread before touching the
-    // finalized results
+    // finalized results. Only successful runs finalize (results are
+    // never extracted on a nonzero status), and no throw may cross the
+    // thread's boundary.
     if (r->status == 0) {
       try {
         bamdecode_finalize(r);
@@ -2659,23 +2633,13 @@ void bamdecode_range_refids(CResult* r, int32_t* first, int32_t* last) {
   *last = r->dec->last_ref.load(std::memory_order_acquire);
 }
 
+// Wait for the decode's thread (which finalized a successful run);
+// returns its status.
 int bamdecode_join(CResult* r) {
   if (r->th) {
     r->th->join();
     delete r->th;
     r->th = nullptr;
-  }
-  // normally a no-op (the decode thread finalizes successful runs);
-  // guards the throw like bamdecode_run and skips failed runs
-  if (r->status == 0 && !r->finalized) {
-    try {
-      bamdecode_finalize(r);
-    } catch (const std::exception& e) {
-      r->dec->err_msg = e.what();
-      r->status = 4;
-    } catch (...) {
-      r->status = 4;
-    }
   }
   return r->status;
 }
@@ -3017,7 +2981,6 @@ double bamdecode_inflate_floor(const char* path, int threads) {
   return bad.load() ? -1 : dt;
 }
 
-int bamdecode_status(CResult* r) { return r->status; }
 int64_t bamdecode_n_records(CResult* r) { return r->n_records; }
 
 // decoder-internal record-walk wall (seconds): the BGZF record loop from

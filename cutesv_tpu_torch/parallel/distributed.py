@@ -15,8 +15,8 @@ single-process one.
 
 Division of labour:
 
-* decode is SHARDED over compressed byte ranges (:func:`decode_sharded`;
-  ``pipeline._decode_sharded_streaming`` for a streaming BAM decode):
+* decode is SHARDED over compressed byte ranges
+  (``pipeline._decode_bam_native``, :func:`exchange_decodes`):
   each process inflates only ~1/N of the BGZF blocks (CRAM: of the
   containers), finds its first record boundary by validated chaining,
   and the small signature/census partials are allgathered and merged,
@@ -473,44 +473,20 @@ def allgather_obj(obj, info: dict = None):
     return out
 
 
-def decode_sharded(cfg, bed_ids, is_cram: bool = False, info: dict = None,
-                   device=None):
-    """Distributed decode: this process inflates only its byte range of
-    the input (block-aligned for BAM, container-aligned for CRAM), then
-    the per-shard partial decodes are allgathered (signatures + census
-    are ~2% of the compressed input) and merged — each host ends with
-    the exact whole-file decode, and the dominant stage's wall drops
-    ~1/num_processes. Cross-shard boundaries are checked equal before
-    any result is used. ``info`` receives the allgather's sizes and
-    seconds; the merged decode carries this process's record count
-    (``shard_records``) and decoder timers. A BAM's BGZF blocks inflate
-    on the card of a CUDA ``device``."""
-    from cutesv_tpu_torch.io import native as native_io
-
-    n = process_count()
-    k = process_index()
-    if is_cram:
-        ranges = plan_cram_shard_ranges(cfg.input, n)
-        nd = native_io.decode(cfg.input, cfg, bed_ids,
-                              reference=cfg.reference,
-                              byte_range=ranges[k][:2])
-    else:
-        ranges = plan_shard_ranges(cfg.input, n)
-        nd = native_io.decode(cfg.input, cfg, bed_ids,
-                              byte_range=ranges[k][:2], device=device)
-    log.info("sharded decode: shard %d/%d decoded %d records", k, n,
-             nd.n_records)
+def exchange_decodes(nd, ranges, info: dict = None):
+    """The whole-file decode from this process's ranged decode ``nd`` of
+    the plan ``ranges`` (:func:`plan_shard_ranges`,
+    :func:`plan_cram_shard_ranges`): the partial decodes are allgathered
+    (signatures + census are ~2% of the compressed input), their
+    boundaries checked equal before anything is used, and merged
+    (:func:`merge_partial_decodes`), so each host ends with the exact
+    whole-file decode while the dominant stage's wall drops
+    ~1/num_processes. The merged decode carries the parts' census counts
+    (``part_census_counts``). ``info`` receives the allgather's sizes and
+    seconds."""
     parts = allgather_obj(nd, info)
     check_shard_boundaries(ranges,
                            [(p.first_u, p.next_u) for p in parts])
     merged = merge_partial_decodes(parts)
     merged.part_census_counts = part_census_counts(parts)
-    merged.shard_records = nd.n_records
-    merged.walk_s = nd.walk_s
-    merged.inflate_core_s = nd.inflate_core_s
-    merged.records_core_s = nd.records_core_s
-    merged.blocks_card = nd.blocks_card
-    merged.blocks_host = nd.blocks_host
-    merged.batches_card = nd.batches_card
-    merged.launches_card = nd.launches_card
     return merged

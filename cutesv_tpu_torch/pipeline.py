@@ -5,9 +5,10 @@ request or for a CRAM feature the C++ decoder does not implement) ->
 signature store -> resolution (DEL/INS and DUP/INV/TRA clustering on the
 device, emission on the host) -> genotype fill (one batched pass of the
 CUDA cover-count kernel per int32-safe flush, TRA windows included) ->
-VCF. On the device engine the native decode streams: each chromosome's
-cluster programs are dispatched as soon as the decoder finishes it, and
-its DEL/INS emission and genotype can run under the remaining decode.
+VCF. On the device engine the native decode streams (:func:`stream_rule`):
+each chromosome's cluster programs are dispatched as soon as the decoder
+finishes it, and its DEL/INS emission and genotype run under the
+remaining decode.
 Under ``--distributed`` (``parallel/distributed.py``) each process
 decodes its byte range of the input, the partial decodes are exchanged
 and merged, each process resolves its own chromosome bucket on its own
@@ -28,7 +29,7 @@ import functools
 import logging
 import os
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,6 +40,7 @@ from cutesv_tpu_torch.genotype import (assign_gt_del_ins, call_gt_tra,
                                        cover_counts, gl_table,
                                        support_inter_counts,
                                        threshold_ref_count)
+from cutesv_tpu_torch.io import native as native_io
 from cutesv_tpu_torch.io.bam import BamReader
 from cutesv_tpu_torch.io.fasta import FastaFile
 from cutesv_tpu_torch.models import device as device_models
@@ -86,29 +88,34 @@ def load_bed_regions(path: Optional[str]) -> Optional[Dict[str, list]]:
 
 def decode_bam(cfg: Config, device=None):
     """Stream the BAM or CRAM once, extracting signatures + read census.
-    A CRAM is decoded against ``cfg.reference``, its FASTA.
+    A CRAM is decoded against ``cfg.reference``, its FASTA. Returns
+    (store, candidates, records): the store's ``chrom_lengths`` are the
+    header's references in header order; ``candidates`` are the Python
+    reader's raw signatures (``--write_old_sigs`` writes them), None from
+    the C++ decoder.
 
     ``cfg.decoder`` "native" or "auto": the C++ decoder (native/), built
     with g++ at first use; a failed build or load, or a malformed file,
     raises. A CRAM feature the C++ decoder does not implement (a legacy
     lzma-"alone" block, a CRAM 2.x file: ``NativeUnsupported``) is read
     by the Python reader instead, as in the JAX package; the run logs it
-    and reports ``decoder="python"``. With the device engine the native
-    decode streams (:func:`_stream_dispatch_ok`) and dispatches cluster
-    programs on ``device`` while it runs. "python": the pure-Python
-    reader, the behavioral oracle. The store carries
-    ``decode_breakdown``: which decoder ran and, for the native one, its
-    record-walk wall, inflate / record-parse core-seconds and the BGZF
-    blocks inflated on the card and on the host (plus the streaming
-    split). A BAM's blocks inflate on the card of a CUDA ``device``, in
-    zlib threads otherwise."""
+    and reports ``decoder="python"``. Where :func:`stream_rule` says so,
+    the native decode streams and dispatches cluster programs on
+    ``device`` while it runs. "python": the pure-Python reader, the
+    behavioral oracle. The store carries ``decode_breakdown``: which
+    decoder ran and, for the native one, its record-walk wall and its
+    counters (``io/native.py::COUNTERS``: inflate / record-parse
+    core-seconds, the BGZF blocks inflated on the card and on the host,
+    the card's batches and launches), plus the early work of a streaming
+    decode and the exchange of a ranged one. A BAM's blocks inflate on
+    the card of a CUDA ``device``, in zlib threads otherwise."""
     with open(cfg.input, "rb") as probe:
         is_cram = probe.read(4) == b"CRAM"
     if cfg.decoder in ("native", "auto"):
-        from cutesv_tpu_torch.io.native import NativeUnsupported
         try:
-            return _decode_bam_native(cfg, device, is_cram)
-        except NativeUnsupported as exc:
+            store, n_records = _decode_bam_native(cfg, device, is_cram)
+            return store, None, n_records
+        except native_io.NativeUnsupported as exc:
             log.info("native decoder: %s; using the python reader", exc)
     elif cfg.decoder != "python":
         raise ValueError("unknown decoder %r (use native, python or auto)"
@@ -116,43 +123,54 @@ def decode_bam(cfg: Config, device=None):
     return _decode_bam_python(cfg)
 
 
-def _n_cores() -> int:
-    """Cores actually usable by this process: cgroup/taskset affinity
-    (len(sched_getaffinity)) where available, os.cpu_count otherwise —
-    a container pinned to 2 CPUs on a 64-core host must take the
-    2-core tuning paths, not the wide-host ones."""
-    try:
-        return len(os.sched_getaffinity(0)) or 1
-    except AttributeError:  # non-Linux
-        return os.cpu_count() or 1
+class StreamRule(NamedTuple):
+    """How a native decode runs (:func:`stream_rule`)."""
+
+    # the poll loop snapshots each chromosome as the decoder completes it
+    # and dispatches its cluster programs while later ones decode
+    stream: bool
+    # a DEL/INS chromosome completed before the walk's end runs the full
+    # tail there (emission and genotype)...
+    tail: bool
+    # ... the range's first chromosome too
+    tail_first: bool = True
+    # ... the final batch's chromosomes too: never by the rule (with no
+    # decode left to hide under they keep the batched cover launch);
+    # tests substitute the rule to run the tail on fixtures that decode
+    # in one poll
+    tail_done: bool = False
 
 
-def _stream_dispatch_ok(cfg: Config, is_cram: bool,
-                        for_distributed: bool = False) -> bool:
-    """Streaming decode->dispatch overlap for device-engine runs: cluster
-    programs for completed chromosomes launch while later chromosomes
-    still decode. A plain run's CRAM streams as a BAM does (the CRAM
-    front end feeds the same per-record extraction, so per-chromosome
-    progress and snapshots work unchanged). A multi-process run streams
-    through ``_decode_sharded_streaming``, which calls this gate with
-    ``for_distributed=True``; its ranged decode plans BGZF block ranges,
-    so a CRAM is excluded there only. CUTESV_STREAM_DISPATCH=0 forces it
-    off; CUTESV_STREAM_DISPATCH=1 bypasses only the core-count heuristic
-    (the snapshot sort/pad/upload work contends with the inflate pool
-    when there is a single core); the structural gate (device engine, no
-    force calling: it never uses early programs, so its decode runs
-    plain) always applies."""
-    forced = os.environ.get("CUTESV_STREAM_DISPATCH")
-    if forced is not None:
-        if forced != "1":
-            return False
-    elif _n_cores() < 2:
-        return False
-    if for_distributed and is_cram:
-        return False
-    return (cfg.engine in ("device", "auto")
-            and (for_distributed or not cfg.distributed)
-            and not cfg.Ivcf)
+def stream_rule(cfg: Config, is_cram: bool, byte_range=None) -> StreamRule:
+    """How a native decode runs, decided once before it starts from what
+    the run can observe. ``byte_range``: this process's range of a
+    multi-process ``--distributed`` run (None: the whole file).
+
+    The decode streams on the device engine, but not under force
+    calling (``-Ivcf`` uses no early program); a whole-file decode does
+    not stream under ``--distributed`` (a run of one process), a ranged
+    one streams a BAM only: the JAX package's gate, without its core
+    count and its environment. A streaming decode runs the full tail
+    unless ``--report_readid`` (the tail renders no read names); a
+    ranged one never for its first chromosome past the file's start
+    (another range owns its prefix, so its local census may be short,
+    and the count fingerprints audit signature streams only) nor for
+    its final batch (the range-end chromosome's census may be cut by the
+    budget)."""
+    if byte_range is None:
+        stream = not cfg.distributed
+    else:
+        stream = not is_cram
+    stream = stream and cfg.engine in ("device", "auto") and not cfg.Ivcf
+    return StreamRule(stream=stream, tail=stream and not cfg.report_readid,
+                      tail_first=byte_range is None or byte_range[0] <= 0)
+
+
+def _tails(rule: StreamRule, sd, c: int, finished: bool) -> bool:
+    """Whether chromosome ``c`` of the streaming decode ``sd`` runs the
+    full DEL/INS tail under ``rule``, ``finished``: in the DONE batch."""
+    return (rule.tail and (not finished or rule.tail_done)
+            and (rule.tail_first or c != sd.range_refids()[0]))
 
 
 class _NativeBlobView:
@@ -170,15 +188,6 @@ class _NativeBlobView:
     def spans(self, offs, lens):
         """Batched span read (one lock acquisition + ctypes call)."""
         return self._sd.ins_seq_spans(offs, lens)
-
-
-def _stream_tail_default(n_cores: int, n_refs: int) -> bool:
-    """Whether the FULL mid-decode tail (emission + genotype) defaults
-    on: at 2 cores with few contigs the tail steals more from the inflate
-    workers than the shortened post-decode tail returns; at many contigs
-    the serial post-decode tail dominates and the overlap wins; at >= 4
-    cores the tail runs beside the inflate pool."""
-    return n_cores >= 4 or n_refs >= 8
 
 
 def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
@@ -240,22 +249,14 @@ def _stream_tail_emit(sd, cfg: Config, svtype: str, c: int, cols,
 _WAIT_GUARD_MS = 100
 
 
-def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
-                         allow_done_tail: bool = True):
-    """Poll/dispatch loop of the streaming decode paths: as each
-    chromosome completes, snapshot its rows, sort/dedup them with the
-    store's exact keys and dispatch its cluster programs on ``device``
-    (plus, where eligible, the full mid-decode DEL/INS tail). Runs until
-    the decode thread reports DONE; the caller joins and validates
+def _streaming_poll_loop(sd, cfg: Config, device, rule: StreamRule):
+    """Poll/dispatch loop of a streaming decode: as each chromosome
+    completes, snapshot its rows, sort/dedup them with the store's exact
+    keys and dispatch its cluster programs on ``device`` (plus, where
+    ``rule`` says so, the full mid-decode DEL/INS tail). Runs until the
+    decode thread reports DONE; the caller joins and validates
     fingerprints. A failing dispatch or tail raises: there is no
     fallback to a plain decode.
-
-    ``tail_chrom_ok(c)``: extra per-chromosome gate for the FULL tail (a
-    sharded decode excludes its possibly-partial range-start chromosome,
-    whose local census may be missing a prefix another shard owns).
-    ``allow_done_tail``: whether CUTESV_STREAM_TAIL=force may tail the
-    final batch (never under a byte range: the range-end chromosome's
-    census may be cut by the budget).
 
     Between passes the loop sleeps in the decoder until the next
     chromosome completes (``sd.wait``), so none waits undispatched.
@@ -273,18 +274,6 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
     fingerprints: Dict[tuple, dict] = {}
     early_results: Dict[tuple, tuple] = {}
     census_cache: Dict[int, dict] = {}
-    # the full mid-decode tail (emission + genotype) needs rendered read
-    # names nowhere; --report_readid does, so it keeps the program-only
-    # overlap. CUTESV_STREAM_TAIL=1/0 forces the full tail on/off;
-    # "force" also runs it for the final batch (small inputs decode in
-    # one poll, so nothing completes mid-run). The default is
-    # _stream_tail_default (n_refs is header-derived and valid only once
-    # poll() >= 0, so it resolves lazily below).
-    tail_env = os.environ.get("CUTESV_STREAM_TAIL")
-    tail_force = tail_env == "force" and allow_done_tail
-    tail_ok = None
-    tail_pref = not cfg.report_readid and tail_env != "0"
-    tail_forced_on = tail_env in ("1", "force")
     done = set()
 
     def dispatch(c):
@@ -332,9 +321,7 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
 
     def finish(item, nk_comp, finished):
         svtype, c, kind, _ = item
-        if (kind == "indel" and tail_ok
-                and (not finished or tail_force)
-                and (tail_chrom_ok is None or tail_chrom_ok(c))):
+        if kind == "indel" and _tails(rule, sd, c, finished):
             # chromosomes completed before end-of-decode run the FULL
             # tail here (emission + genotype), under the remaining
             # decode; the final batch keeps the batched kernel cover
@@ -353,10 +340,6 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
     p = sd.poll()
     while True:
         finished = p == sd.DONE
-        if tail_ok is None and (finished or p >= 0):
-            tail_ok = tail_pref and (
-                tail_forced_on
-                or _stream_tail_default(_n_cores(), sd.n_refs()))
         if finished:
             # the run finished: every remaining chromosome's rows are
             # final, so snapshot them too — their prepared columns
@@ -385,8 +368,7 @@ def _streaming_poll_loop(sd, cfg: Config, device, tail_chrom_ok=None,
         p = sd.wait(p, _WAIT_GUARD_MS)
 
 
-def _attach_early_to_store(store, nd, handles, fingerprints,
-                           early_results) -> None:
+def _attach_early_to_store(store, nd, handles, early_results) -> None:
     """Keep the early program handles / full-tail results whose
     fingerprints validated against the final arrays; patch the tails'
     chromosome-name placeholders. A chromosome that did not validate (a
@@ -411,257 +393,162 @@ def _attach_early_to_store(store, nd, handles, fingerprints,
                 n_early))
 
 
-def _decode_bam_native_streaming(cfg: Config, bed_ids, device,
-                                 reference=None):
-    """Decode on a native thread; as each chromosome completes, snapshot
-    its rows, sort/dedup them with the store's exact keys (local
-    name/seq ranks are order-isomorphic to the final global ranks
-    restricted to the same rows) and dispatch its cluster programs.
-    After the join, build_store_native validates each snapshot
-    fingerprint against the final rows — a later read's SA tag can add
-    signatures to an already-passed chromosome — and only validated
-    chromosomes reuse the early work (resolve re-dispatches the rest)."""
-    from cutesv_tpu_torch.io import native as native_io
+def _bed_ids(cfg: Config, is_cram: bool):
+    """``--include_bed``'s padded regions as the C++ decoder's (chr_id,
+    start, end) arrays in header chrom-id space, or None."""
+    if cfg.include_bed is None:
+        return None
+    bed = load_bed_regions(cfg.include_bed)
+    # map chrom names to header ids via a cheap header-only read
+    if is_cram:
+        from cutesv_tpu_torch.io.cram import CramReader
+        header = CramReader(cfg.input, reference=cfg.reference or None)
+    else:
+        header = BamReader(cfg.input)
+    name_to_id = {n: i for i, (n, _) in enumerate(header.references)}
+    header.close()
+    bc, bs, be = [], [], []
+    for chrom, regions in bed.items():
+        cid = name_to_id.get(chrom)
+        if cid is None:
+            continue
+        for r0, r1 in regions:
+            bc.append(cid)
+            bs.append(r0)
+            be.append(r1)
+    if not bc:
+        # no BED chrom matches the header (or the BED is empty): the
+        # Python reader excludes EVERY read (bed.get(chrom, []) -> no
+        # overlap); an empty region list would instead disable the
+        # native filter entirely, so pass one impossible region to
+        # keep it enabled-and-excluding
+        bc, bs, be = [0], [-2], [-1]
+    return (np.array(bc, np.int32), np.array(bs, np.int64),
+            np.array(be, np.int64))
 
+
+def _decode_bam_native(cfg: Config, device, is_cram: bool):
+    """The C++ decoder's run, on its own thread: over the whole file, or
+    over this process's byte range of a multi-process ``--distributed``
+    run (BGZF blocks for a BAM, containers for a CRAM), whose partial
+    decodes are then exchanged and merged
+    (``parallel/distributed.py::exchange_decodes``); beside it, where
+    :func:`stream_rule` says so, the poll loop. Returns (store,
+    records).
+
+    Streaming: as each chromosome completes, the loop snapshots its rows,
+    sorts/dedups them with the store's exact keys (local name/seq ranks
+    are order-isomorphic to the final global ranks restricted to the
+    same rows) and dispatches its cluster programs. After the join (and
+    the merge) the store validates each snapshot fingerprint against the
+    final rows (a later read's SA tag, or another range, can add
+    signatures to an already-passed chromosome) and only validated
+    chromosomes reuse the early work; resolve re-dispatches the rest. A
+    ranged decode first remaps its snapshot columns into the merged
+    name-id / sequence-blob spaces.
+
+    Collective discipline: every process of a ranged decode runs the
+    exchange exactly once. A local failure raises before it (there is no
+    fallback); the failing process's exit closes its gloo sockets, so its
+    peers' allgather raises rather than waits."""
     native_io.get_lib()  # a failed decoder build raises before the device
     device = resolve_device(device)
-    # a BAM's BGZF blocks inflate on the card of a CUDA device
-    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, reference,
-                                   device=None if reference else device)
+    rng = None
+    if cfg.distributed:
+        from cutesv_tpu_torch.parallel import distributed as dist
+        n, k = dist.process_count(), dist.process_index()
+        if n > 1:
+            plan = (dist.plan_cram_shard_ranges if is_cram
+                    else dist.plan_shard_ranges)
+            ranges = plan(cfg.input, n)
+            rng = ranges[k][:2]
+    rule = stream_rule(cfg, is_cram, rng)
+    # a CRAM is read with its FASTA; a BAM's BGZF blocks inflate on the
+    # card of a CUDA device
+    sd = native_io.StreamingDecode(
+        cfg.input, cfg, _bed_ids(cfg, is_cram),
+        cfg.reference if is_cram else None, rng,
+        device=None if is_cram else device)
+    early = None
     try:
-        handles, fingerprints, early_results = _streaming_poll_loop(
-            sd, cfg, device)
+        if rule.stream:
+            early = _streaming_poll_loop(sd, cfg, device, rule)
     except BaseException:
         sd.free()
         raise
     with trace.span("decode.join"), sd:  # the join, then the decoder's free
         nd = sd.join()
-    _walk_span(nd)
-    _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
-                             nd.chroms)
-    early_fp = {(t, nd.chroms[c]): fp
-                for (t, c), fp in fingerprints.items()}
-    store = _build_store(nd, early=early_fp)
-    _attach_early_to_store(store, nd, handles, fingerprints, early_results)
-    # walk_s is the decoder-internal record-loop wall the inflate floor
-    # bounds; the stage split (native_s, store_s, overlap_work_s, ...)
-    # comes from the spans (_span_stats)
-    store.decode_breakdown = dict(
-        decoder="native", streaming=True, walk_s=nd.walk_s,
-        inflate_core_s=nd.inflate_core_s,
-        records_core_s=nd.records_core_s, blocks_card=nd.blocks_card,
-        blocks_host=nd.blocks_host, batches_card=nd.batches_card,
-        launches_card=nd.launches_card,
-        early_dispatched=len(handles) + len(early_results),
-        early_kernels=len(store.early_kernels),
-        early_tails=len(store.early_results))
-    references = [(nd.chroms[i], int(nd.ref_lengths[i]))
-                  for i in range(len(nd.ref_lengths))]
-    return store, None, references, nd.n_records
-
-
-def _shard_tail_gate(sd, range_start: int):
-    """Full-tail gate for a ranged (sharded) streaming decode: the
-    range-START chromosome may be missing a record prefix the
-    predecessor shard owns, and the count fingerprints only audit
-    signature streams — its local census could silently be short, so it
-    never runs the mid-decode tail. Shard 0 (range_start <= 0) owns the
-    file start, so its first chromosome is complete. (The range-END
-    chromosome is excluded by allow_done_tail=False: it only completes
-    at DONE.)"""
-    def tail_chrom_ok(c):
-        first, _last = sd.range_refids()
-        return range_start <= 0 or c != first
-    return tail_chrom_ok
-
-
-def _sharded_breakdown(records: int, timers, gather: dict, k: int,
-                       n: int) -> dict:
-    """decode_breakdown entries of a sharded decode: this process's shard,
-    its record count and decoder timers (``timers``: a NativeDecode), and
-    the decode allgather."""
-    return dict(decoder="native", sharded=True, shard=k, shards=n,
-                shard_records=records, walk_s=timers.walk_s,
-                inflate_core_s=timers.inflate_core_s,
-                records_core_s=timers.records_core_s,
-                blocks_card=timers.blocks_card,
-                blocks_host=timers.blocks_host,
-                batches_card=timers.batches_card,
-                launches_card=timers.launches_card,
-                allgather_mb=gather["local_mb"],
-                allgather_total_mb=gather["total_mb"],
-                allgather_s=gather["seconds"])
-
-
-def _decode_sharded_streaming(cfg: Config, bed_ids, device):
-    """--distributed BAM decode WITH the mid-decode overlap: this process
-    inflates only its block-aligned byte range through the streaming
-    decoder, dispatching cluster programs on ``device`` — and, where
-    eligible, full DEL/INS tails — for chromosomes that complete inside
-    the range while later blocks still decode. After the allgather and
-    merge, each fingerprint (raw per-chromosome row count) is validated
-    against the MERGED arrays, so any chromosome another shard
-    contributed rows to (a range boundary cut, or a foreign read's SA
-    tag) discards its early work and is resolved again from the global
-    sort. The local snapshot columns are remapped into the merged
-    name-id / sequence-blob spaces before validation.
-
-    Full tails additionally exclude the range-START chromosome
-    (:func:`_shard_tail_gate`) and the final DONE batch (the range-END
-    chromosome's census can be cut by the uncompressed-length budget).
-
-    Collective discipline: every process runs the decode allgather
-    exactly once. A local failure raises before the exchange (there is
-    no fallback to a plain ranged decode); the failing process's exit
-    closes its gloo sockets, so its peers' allgather raises rather than
-    waits."""
-    from cutesv_tpu_torch.io import native as native_io
-    from cutesv_tpu_torch.parallel import distributed as dist
-
-    native_io.get_lib()  # a failed decoder build raises before the device
-    device = resolve_device(device)
-    n = dist.process_count()
-    k = dist.process_index()
-    ranges = dist.plan_shard_ranges(cfg.input, n)
-    rng = ranges[k][:2]
-    sd = native_io.StreamingDecode(cfg.input, cfg, bed_ids, byte_range=rng,
-                                   device=device)
-    try:
-        handles, fingerprints, early_results = _streaming_poll_loop(
-            sd, cfg, device, tail_chrom_ok=_shard_tail_gate(sd, rng[0]),
-            allow_done_tail=False)
-    except BaseException:
-        sd.free()
-        raise
-    with trace.span("decode.join"), sd:  # the join, then the decoder's free
-        nd_local = sd.join()
-    _walk_span(nd_local)
-    log.info("sharded decode: shard %d/%d decoded %d records, walk %.2fs "
-             "(streaming)", k, n, nd_local.n_records, nd_local.walk_s)
+    if rng is None:
+        return _finish_native(nd, nd, early), nd.n_records
+    log.info("sharded decode: shard %d/%d decoded %d records, walk %.2fs%s",
+             k, n, nd.n_records, nd.walk_s,
+             " (streaming)" if rule.stream else "")
     gather: dict = {}
-    parts = dist.allgather_obj(nd_local, gather)
-    dist.check_shard_boundaries(ranges,
-                                [(p.first_u, p.next_u) for p in parts])
-    pcc = dist.part_census_counts(parts)
-    nd = dist.merge_partial_decodes(parts)
-    _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
-                             nd.chroms)
-    remap = nd.part_name_remaps[k]
-    blob_base = nd.part_blob_bases[k]
-    early_fp = {}
-    for (t, c), fp in fingerprints.items():
-        fp = dict(fp)
-        if "name_id" in fp:
-            fp["name_id"] = remap[fp["name_id"]]
-        if "seq_off" in fp:
-            fp["seq_off"] = fp["seq_off"] + blob_base
-        early_fp[(t, nd.chroms[c])] = fp
-    store = _build_store(nd, early=early_fp)
-    _attach_early_to_store(store, nd, handles, fingerprints, early_results)
-    store.part_census_counts = pcc
-    store.decode_breakdown = dict(
-        _sharded_breakdown(nd_local.n_records, nd_local, gather, k, n),
-        streaming=True,
-        early_dispatched=len(handles) + len(early_results),
-        early_kernels=len(store.early_kernels),
-        early_tails=len(store.early_results))
-    references = [(nd.chroms[i], int(nd.ref_lengths[i]))
-                  for i in range(len(nd.ref_lengths))]
-    return store, None, references, nd.n_records
+    merged = dist.exchange_decodes(nd, ranges, gather)
+    if early is not None:
+        # the snapshot columns' name ids and blob offsets, into the merged
+        # decode's spaces
+        handles, fingerprints, early_results = early
+        remap = merged.part_name_remaps[k]
+        blob_base = merged.part_blob_bases[k]
+        moved = {}
+        for key, fp in fingerprints.items():
+            fp = dict(fp)
+            if "name_id" in fp:
+                fp["name_id"] = remap[fp["name_id"]]
+            if "seq_off" in fp:
+                fp["seq_off"] = fp["seq_off"] + blob_base
+            moved[key] = fp
+        early = handles, moved, early_results
+    store = _finish_native(
+        merged, nd, early, sharded=True, shard=k, shards=n,
+        shard_records=nd.n_records, allgather_mb=gather["local_mb"],
+        allgather_total_mb=gather["total_mb"], allgather_s=gather["seconds"])
+    store.part_census_counts = merged.part_census_counts
+    return store, merged.n_records
 
 
-def _decode_bam_native(cfg: Config, device=None, is_cram=False):
-    from cutesv_tpu_torch.io import native as native_io
-    bed_ids = None
-    if cfg.include_bed is not None:
-        bed = load_bed_regions(cfg.include_bed)
-        # map chrom names to header ids via a cheap header-only read
-        if is_cram:
-            from cutesv_tpu_torch.io.cram import CramReader
-            header = CramReader(cfg.input, reference=cfg.reference or None)
-        else:
-            header = BamReader(cfg.input)
-        name_to_id = {n: i for i, (n, _) in enumerate(header.references)}
-        header.close()
-        bc, bs, be = [], [], []
-        for chrom, regions in bed.items():
-            cid = name_to_id.get(chrom)
-            if cid is None:
-                continue
-            for r0, r1 in regions:
-                bc.append(cid)
-                bs.append(r0)
-                be.append(r1)
-        if not bc:
-            # no BED chrom matches the header (or the BED is empty): the
-            # Python reader excludes EVERY read (bed.get(chrom, []) -> no
-            # overlap); an empty region list would instead disable the
-            # native filter entirely, so pass one impossible region to
-            # keep it enabled-and-excluding
-            bc, bs, be = [0], [-2], [-1]
-        bed_ids = (np.array(bc, np.int32), np.array(bs, np.int64),
-                   np.array(be, np.int64))
-    reference = cfg.reference if is_cram else None  # a CRAM's FASTA
-    if _stream_dispatch_ok(cfg, is_cram):
-        # no fallback: a failing dispatch or tail raises
-        return _decode_bam_native_streaming(cfg, bed_ids, device, reference)
-    if cfg.distributed:
-        from cutesv_tpu_torch.parallel import distributed as dist
-        if dist.process_count() > 1:
-            # multi-host: inflate only this process's byte range (BGZF
-            # blocks for BAM, containers for CRAM), then exchange the
-            # (small) signature partials. BAM ranges stream: early
-            # programs/tails for chromosomes completed inside the range
-            # overlap the remaining decode (validated after the merge)
-            if _stream_dispatch_ok(cfg, is_cram, for_distributed=True):
-                return _decode_sharded_streaming(cfg, bed_ids, device)
-            gather: dict = {}
-            nd = dist.decode_sharded(cfg, bed_ids, is_cram=is_cram,
-                                     info=gather, device=device)
-            _check_coordinate_sorted(nd.arrays["all_chr"],
-                                     nd.arrays["all_start"], nd.chroms)
-            store = _build_store(nd)
-            store.part_census_counts = nd.part_census_counts
-            store.decode_breakdown = dict(
-                _sharded_breakdown(nd.shard_records, nd, gather,
-                                   dist.process_index(),
-                                   dist.process_count()),
-                streaming=False)
-            references = [(nd.chroms[i], int(nd.ref_lengths[i]))
-                          for i in range(len(nd.ref_lengths))]
-            return store, None, references, nd.n_records
-    nd = native_io.decode(cfg.input, cfg, bed_ids, reference=reference,
-                          device=None if is_cram else device)
-    _walk_span(nd)
+def _finish_native(nd, walk, early, **exchange) -> sigstore.SigStore:
+    """The store of a joined native decode ``nd`` (this process's, or a
+    ranged decode's merged one) with the poll loop's ``early`` work
+    (:func:`_streaming_poll_loop`'s, its fingerprints in ``nd``'s
+    spaces; None for a plain decode) validated and attached: the
+    sortedness check, the store and ``decode_breakdown``. ``walk``: the
+    decode this process's decoder ran (``nd`` itself, or its part of
+    ``nd``), whose walk is the span ``decode.walk`` and whose wall and
+    counters the breakdown reports, with ``exchange``, a ranged decode's
+    shard and allgather, and the early work's counts."""
+    _walk_span(walk)
     _check_coordinate_sorted(nd.arrays["all_chr"], nd.arrays["all_start"],
                              nd.chroms)
-    store = _build_store(nd)
-    store.decode_breakdown = dict(decoder="native", streaming=False,
-                                  walk_s=nd.walk_s,
-                                  inflate_core_s=nd.inflate_core_s,
-                                  records_core_s=nd.records_core_s,
-                                  blocks_card=nd.blocks_card,
-                                  blocks_host=nd.blocks_host,
-                                  batches_card=nd.batches_card,
-                                  launches_card=nd.launches_card)
-    references = [(nd.chroms[i], int(nd.ref_lengths[i]))
-                  for i in range(len(nd.ref_lengths))]
-    return store, None, references, nd.n_records
+    breakdown = dict(decoder="native", streaming=early is not None,
+                     walk_s=walk.walk_s, **native_io.counters(walk),
+                     **exchange)
+    if early is None:
+        store = _build_store(nd)
+    else:
+        handles, fingerprints, early_results = early
+        store = _build_store(nd, early={
+            (t, nd.chroms[c]): fp for (t, c), fp in fingerprints.items()})
+        _attach_early_to_store(store, nd, handles, early_results)
+        breakdown.update(early_dispatched=len(handles) + len(early_results),
+                         early_kernels=len(store.early_kernels),
+                         early_tails=len(store.early_results))
+    store.decode_breakdown = breakdown
+    return store
 
 
 def _walk_span(nd) -> None:
     """The native decoder's record walk as the span ``decode.walk`` (its
     own start and end on the epoch clock, on the decoder's thread) with
-    its records, core-seconds and the BGZF blocks that the card and the
-    zlib threads inflated (the header's too); none when the walk did not
-    run."""
+    its records and the decoder's counters (``io/native.py::COUNTERS``:
+    core-seconds, the BGZF blocks that the card and the zlib threads
+    inflated, the header's too, and the card's batches and launches);
+    none when the walk did not run."""
     if nd.walk_t1_ns > nd.walk_t0_ns > 0:
         trace.add_span("decode.walk", nd.walk_t0_ns, nd.walk_t1_ns,
                        "decoder", records=nd.n_records,
-                       inflate_core_s=nd.inflate_core_s,
-                       records_core_s=nd.records_core_s,
-                       blocks_card=nd.blocks_card,
-                       blocks_host=nd.blocks_host)
+                       **native_io.counters(nd))
 
 
 def _n_sigs(store) -> Dict[str, int]:
@@ -768,7 +655,7 @@ def _decode_bam_python(cfg: Config):
     store = sigstore.build_store(candidates, census_rows, allread_rows,
                                  chrom_lengths)
     store.decode_breakdown = dict(decoder="python")
-    return store, candidates, reader.references, n_records
+    return store, candidates, n_records
 
 
 def _fill_gt_del_ins(cands: List[list], jobs: List[dict], store, chrom,
@@ -1552,14 +1439,15 @@ def _write_profile(cfg: Config, prof, recorded: dict) -> str:
 def _span_stats(spans: List[dict]) -> dict:
     """The stage times of a call, from its spans: ``decode_s`` (the
     decode span, which holds the store), ``resolve_s``, ``emit_s``,
-    ``total_s`` (the call) and, for a streaming decode, its split:
+    ``total_s`` (the call) and, for a native decode, its split:
     ``native_s`` (decode start to the end of ``decode.join``, the
     decoder's join and free), ``store_s`` (the rest of decode: the
     exchange of a multi-process decode, the sortedness check, the store,
     attaching the early work),
-    ``overlap_work_s`` / ``done_tail_s`` (the poll loop's dispatch and
-    tail spans before / in the DONE batch) and ``tail_windows`` (the
-    genotype windows the mid-decode tails counted on the host)."""
+    ``overlap_work_s`` / ``done_tail_s`` (a streaming decode's poll loop's
+    dispatch and tail spans before / in the DONE batch; 0 for a plain
+    one) and ``tail_windows`` (the genotype windows the mid-decode tails
+    counted on the host)."""
     out = dict(decode_s=trace.seconds(spans, "decode"),
                resolve_s=trace.seconds(spans, "resolve"),
                emit_s=trace.seconds(spans, "emit"),
@@ -1681,11 +1569,9 @@ def _run_stages(cfg: Config, argv: List[str], device, devices,
             store = sigstore.load_store(cfg.work_dir)
             stats["decoder"] = "checkpoint"
             candidates = None
-            references = [(c, l) for c, l in store.chrom_lengths.items()]
             n_records = -1
         else:
-            store, candidates, references, n_records = decode_bam(cfg,
-                                                                  device)
+            store, candidates, n_records = decode_bam(cfg, device)
             stats.update(store.decode_breakdown)
     stats["n_records"] = n_records
     stats["n_sigs"] = _n_sigs(store)
@@ -1742,5 +1628,6 @@ def _run_stages(cfg: Config, argv: List[str], device, devices,
                 per_chrom[chrom] = vcf.format_chrom_records(
                     cfg, rows, fasta.fetch_lazy(chrom), chrom)
         with trace.span("emit.write"):
-            vcf.write_vcf(cfg.output, cfg, per_chrom, references, argv)
+            vcf.write_vcf(cfg.output, cfg, per_chrom,
+                          list(store.chrom_lengths.items()), argv)
     return stats

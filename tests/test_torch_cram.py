@@ -255,10 +255,17 @@ def _alltypes_cram(tmp_path, version):
     return bam, fa, cram
 
 
+# the port's streaming rule itself, before any test substitutes it
+_RULE = tpipe.stream_rule
+
+
 def _port_run(inp, fa, tmp_path, tag, decoder, monkeypatch, stream="0",
               **kw):
-    """The port's pipeline on the CPU: (VCF body, stats)."""
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", stream)
+    """The port's pipeline on the CPU: (VCF body, stats); ``stream`` "0"
+    a plain decode, "1" the streaming rule's."""
+    rule = _RULE if stream == "1" else (
+        lambda *a, **k: tpipe.StreamRule(False, False))
+    monkeypatch.setattr(tpipe, "stream_rule", rule)
     out = tmp_path / ("%s.vcf" % tag)
     cfg = TConfig(input=str(inp), reference=str(fa), output=str(out),
                   work_dir=str(tmp_path / ("wd_" + tag)), genotype=True,

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+from cutesv_tpu_torch import pipeline
 from cutesv_tpu_torch.config import Config
 from cutesv_tpu_torch.genotype import cover_counts
 from cutesv_tpu_torch.ops import cover
@@ -106,11 +107,9 @@ def test_pair_program_matches_cpu(card):
             assert torch.equal(outs[0][k], outs[1][k].cpu()), k
 
 
-def _three_runs(tmp_path, bam, fa, monkeypatch):
+def _three_runs(tmp_path, bam, fa):
     """The default (streaming) run on the card, on the CPU, and the host
     engine on the card: VCF bodies and the card run's stats."""
-    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
-    monkeypatch.delenv("CUTESV_STREAM_TAIL", raising=False)
     bodies, main = {}, None
     for tag, device, engine in (("cuda", "cuda", "device"),
                                 ("cpu", "cpu", "device"),
@@ -129,22 +128,22 @@ def _three_runs(tmp_path, bam, fa, monkeypatch):
     return bodies["cuda"], main
 
 
-def test_streaming_run_equals_cpu_and_host(card, tmp_path, monkeypatch):
+def test_streaming_run_equals_cpu_and_host(card, tmp_path):
     sim = simulate(str(tmp_path / "sim"), genome_mb=2.0, n_chroms=4,
                    coverage=20, read_len=20_000, seed=6)
-    body, main = _three_runs(tmp_path, sim["bam"], sim["fa"], monkeypatch)
+    body, main = _three_runs(tmp_path, sim["bam"], sim["fa"])
     assert main["streaming"] and main["early_dispatched"] >= 1
     assert main["launches"] == 1   # the final batch rides one launch
     assert sum(1 for l in body if not l.startswith("#")) >= 20
 
 
-def test_alltypes_run_equals_cpu_and_host(card, tmp_path, monkeypatch):
+def test_alltypes_run_equals_cpu_and_host(card, tmp_path):
     bed = str(tmp_path / "grid.bed")
     n = chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
     info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
                   coverage=20, seed=1)
     assert info["n_sv"] == n
-    _, main = _three_runs(tmp_path, info["bam"], info["fa"], monkeypatch)
+    _, main = _three_runs(tmp_path, info["bam"], info["fa"])
     assert main["launches"] == 1   # DUP/INV (and TRA) windows: one flush
     recall = chip_smoke.alltypes_recall(info["bed"], str(tmp_path /
                                                          "cuda.vcf"))
@@ -175,11 +174,10 @@ def test_cuda_run_equals_cpu_run(card, tmp_path):
     assert os.path.exists(sim["bed"])
 
 
-def test_alltypes_cram_on_cuda_equals_cpu(card, tmp_path, monkeypatch):
+def test_alltypes_cram_on_cuda_equals_cpu(card, tmp_path):
     """The all-types corpus as a reference-based CRAM: the default run on
     the card gives the body of the CPU run and of the BAM, through the
     native decoder and one cover launch."""
-    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
     bed = str(tmp_path / "grid.bed")
     chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
     info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
@@ -204,14 +202,12 @@ def test_alltypes_cram_on_cuda_equals_cpu(card, tmp_path, monkeypatch):
     assert bodies["cuda"] == bodies["cpu"] == bodies["bam"]
 
 
-def test_profile_on_cuda_traces_the_cover_kernel(card, tmp_path,
-                                                 monkeypatch):
+def test_profile_on_cuda_traces_the_cover_kernel(card, tmp_path):
     """--profile on the card: the whole call's trace holds the cover
     kernel's device operation and the program's spans (the decoder's
     walk, the cover launch), and the body equals the CPU run's."""
     import json
 
-    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
     bed = str(tmp_path / "grid.bed")
     chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
     info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
@@ -237,8 +233,7 @@ def test_profile_on_cuda_traces_the_cover_kernel(card, tmp_path,
     assert bodies["cuda"] == bodies["cpu"]
 
 
-def test_cover_kernel_starts_inside_a_flush_span(card, tmp_path,
-                                                 monkeypatch):
+def test_cover_kernel_starts_inside_a_flush_span(card, tmp_path):
     """The program's spans and the profiler's device operations share a
     clock: each cover kernel of a call on the card, found by the name its
     cover.launch span gives it, starts inside one of the call's
@@ -249,7 +244,6 @@ def test_cover_kernel_starts_inside_a_flush_span(card, tmp_path,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
     bed = str(tmp_path / "grid.bed")
     chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
     info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",
@@ -282,7 +276,9 @@ def test_sharded_run_on_one_card_equals_serial(card, tmp_path, monkeypatch):
     """--n_shards 2 over [cuda:0] * 2 (two sets of per-shard programs and
     one cover launch per window slice, on the one card) gives the serial
     run's body; the stats name the two devices."""
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "0")  # every batch shards
+    # a plain decode: every batch shards
+    monkeypatch.setattr(pipeline, "stream_rule",
+                        lambda *a, **k: pipeline.StreamRule(False, False))
     bed = str(tmp_path / "grid.bed")
     chip_smoke.write_alltypes_bed(bed, "chr1", 3_000_000, seed=5)
     info = replay(str(tmp_path / "rp"), [bed], "chr1:0-3000000",

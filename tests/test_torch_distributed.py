@@ -132,17 +132,21 @@ def test_sharded_decode_union_equals_jax(tmp_path, fmt, n):
 
 @pytest.mark.parametrize("fmt", ["bam", "cram"])
 def test_decode_sharded_without_group_is_whole_decode(tmp_path, fmt):
-    """Outside a process group the sharded decode is one shard: the
-    whole file, with one part's census counts."""
+    """Outside a process group the sharded decode is one shard: its one
+    range decoded and exchanged is the whole file, with one part's
+    census counts."""
     path, fa, ref = _input(tmp_path, fmt)
     jcfg, tcfg = _cfgs(path, fa)
     info = {}
-    nd = tdist.decode_sharded(tcfg, None, is_cram=fmt == "cram", info=info)
+    ranges = PLANS[fmt][1](path, 1)
+    part = tnative.decode(path, tcfg, None, reference=ref,
+                          byte_range=ranges[0][:2])
+    nd = tdist.exchange_decodes(part, ranges, info)
     whole = tnative.decode(path, tcfg, None, reference=ref)
     merged = _assert_merge([jnative.decode(path, jcfg, None, reference=ref)],
                            [whole], whole)
     _assert_decode_equal(merged, nd)
-    assert nd.shard_records == whole.n_records
+    assert part.n_records == nd.n_records == whole.n_records
     assert nd.part_census_counts == tdist.part_census_counts([whole])
     assert info["total_mb"] == info["local_mb"] > 0
 
@@ -332,6 +336,10 @@ def test_bucket_plan_follows_the_process_count():
 # ---------------------------------------------------------------------------
 
 def test_shard_tail_gate_equals_jax():
+    """The tails of a ranged streaming decode under the port's rule are
+    the JAX package's range gate: every chromosome completed mid-range
+    but the range's first past the file's start, none in the DONE
+    batch."""
     class FakeSd:
         def __init__(self, first, last):
             self._r = (first, last)
@@ -339,15 +347,22 @@ def test_shard_tail_gate_equals_jax():
         def range_refids(self):
             return self._r
 
+    cfg = TConfig(engine="device", distributed=True)
+
+    def gate(sd, start, finished=False):
+        rule = tpipe.stream_rule(cfg, False, (start, 4096))
+        return lambda c: tpipe._tails(rule, sd, c, finished)
+
     for first, last, start in ((1, 3, 4096), (0, 3, 0), (2, 2, 10),
                                (0, 0, 0), (-1, -1, 77)):
-        gate = tpipe._shard_tail_gate(FakeSd(first, last), start)
-        jgate = jpipe._shard_tail_gate(FakeSd(first, last), start)
-        assert [gate(c) for c in range(-1, 5)] == \
+        sd = FakeSd(first, last)
+        jgate = jpipe._shard_tail_gate(sd, start)
+        assert [gate(sd, start)(c) for c in range(-1, 5)] == \
             [jgate(c) for c in range(-1, 5)]
-    gate = tpipe._shard_tail_gate(FakeSd(1, 3), range_start=4096)
-    assert not gate(1) and gate(2) and gate(3)
-    assert tpipe._shard_tail_gate(FakeSd(0, 3), range_start=0)(0)
+        assert not any(gate(sd, start, True)(c) for c in range(-1, 5))
+    tails = gate(FakeSd(1, 3), 4096)
+    assert not tails(1) and tails(2) and tails(3)
+    assert gate(FakeSd(0, 3), 0)(0)
 
 
 def test_range_refids_equals_jax(tmp_path):
@@ -410,24 +425,40 @@ def test_allgather_carries_host_values_only():
 
 
 def test_stream_dispatch_gate_equals_jax(monkeypatch):
-    """The dispatch gate with input kind and multi-process flag: equal to
-    the JAX package's over the whole matrix."""
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "1")
+    """The one streaming rule with the input kind and a multi-process
+    byte range, over engine x --distributed x -Ivcf x CRAM x
+    --report_readid: it streams exactly when the JAX package's decode
+    does with 2+ cores and its switch unset (its whole-file gate, or in a
+    multi-process run its ranged gate); the full tail runs exactly when
+    it streams without --report_readid, never for a range's first
+    chromosome past the file's start, and never in the DONE batch."""
+    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
+    monkeypatch.setattr(jpipe, "_n_cores", lambda: 2)
     n = 0
     for engine in ("device", "auto", "host"):
         for distributed in (False, True):
             for ivcf in (None, "x.vcf"):
-                kw = dict(engine=engine, distributed=distributed, Ivcf=ivcf)
-                for is_cram in (False, True):
-                    for for_dist in (False, True):
-                        got = tpipe._stream_dispatch_ok(
-                            TConfig(**kw), is_cram, for_distributed=for_dist)
-                        assert got == jpipe._stream_dispatch_ok(
-                            JConfig(**kw), is_cram,
-                            for_distributed=for_dist), (kw, is_cram,
-                                                        for_dist)
-                        n += got
-    assert n == 8
+                for readid in (False, True):
+                    kw = dict(engine=engine, distributed=distributed,
+                              Ivcf=ivcf, report_readid=readid)
+                    jcfg = JConfig(**kw)
+                    # a range exists only in a multi-process run
+                    for rng in ((None, (0, 4096), (81920, 4096))
+                                if distributed else (None,)):
+                        for is_cram in (False, True):
+                            got = tpipe.stream_rule(TConfig(**kw), is_cram,
+                                                    rng)
+                            want = jpipe._stream_dispatch_ok(
+                                jcfg, is_cram) or (
+                                rng is not None and jpipe._stream_dispatch_ok(
+                                    jcfg, is_cram, for_distributed=True))
+                            assert got.stream == want, (kw, is_cram, rng)
+                            assert got.tail == (want and not readid)
+                            assert got.tail_first == (rng is None
+                                                      or rng[0] == 0)
+                            assert not got.tail_done
+                            n += got.stream
+    assert n == 16
 
 
 def test_init_distributed_single_process_makes_no_group():
@@ -558,10 +589,11 @@ def test_two_process_cram_equals_jax(tmp_path):
 
 
 def test_two_process_streaming_tails_equal_jax(tmp_path):
-    """The device engine streams each process's byte range: with forced
-    tails and a paced decode, chromosomes completing mid-range run their
-    full tail on the process that decoded them, and at least one tail
-    validates against the merged decode."""
+    """The device engine streams each process's byte range: with a paced
+    decode, chromosomes completing mid-range run their full tail (on by
+    the rule: a ranged decode never tails its DONE batch) on the process
+    that decoded them, and at least one tail validates against the
+    merged decode."""
     base = _tails_fixture(tmp_path)
     extra = ["--engine", "device", "--genotype", "-s", "3"]
     want = _jax_body(tmp_path, base, extra, "tails")
@@ -573,8 +605,7 @@ def test_two_process_streaming_tails_equal_jax(tmp_path):
         tag = "st%d_" % attempt
         rcs, outs = _two_processes(
             tmp_path, base, extra, tag,
-            env=dict(CUTESV_STREAM_TAIL="force",
-                     CUTESV_DECODE_CHUNK_DELAY_MS=str(delay_ms)))
+            env=dict(CUTESV_DECODE_CHUNK_DELAY_MS=str(delay_ms)))
         _check_pair(tmp_path, tag, rcs, outs, want)
         assert all("(streaming)" in o for o in outs), outs[0][-1500:]
         tails = sum(int(m.group(1)) for o in outs for m in re.finditer(

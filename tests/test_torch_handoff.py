@@ -168,11 +168,12 @@ def test_slow_main_thread_gives_the_plain_decodes_output(tmp_path,
     chromosome once, and it counts those of the DONE batch: all three
     when the loop starts late."""
     bam, fa = _tiny_bam(tmp_path)
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "0")
-    plain = pipeline.run_pipeline(_cfg(bam, fa, tmp_path, "plain"), ["x"],
-                                  device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setattr(pipeline, "stream_rule",
+                   lambda *a, **k: pipeline.StreamRule(False, False))
+        plain = pipeline.run_pipeline(_cfg(bam, fa, tmp_path, "plain"),
+                                      ["x"], device="cpu")
     assert not _chrom_spans(plain)
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "1")
     if late == "first_poll":
         real = native.StreamingDecode.poll
 
@@ -215,7 +216,6 @@ def test_poll_loop_exception_frees_the_decoder(tmp_path, monkeypatch,
     and leaves the back end free for the next decode."""
     dev = _device(device)
     bam, fa = _tiny_bam(tmp_path)
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "1")
     pipeline.run_pipeline(_cfg(bam, fa, tmp_path, "warm"), ["x"],
                           device=dev)
 

@@ -245,16 +245,22 @@ def test_build_store_native_all_types_equal_jax(tmp_path):
 
 
 def test_decode_bam_with_bed_equals_jax(tmp_path, monkeypatch):
+    """The plain decode of both packages under --include_bed: equal
+    stores, records and references (the port's the store's
+    ``chrom_lengths``, in header order)."""
+    # a plain decode in both packages
     monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "0")
+    monkeypatch.setattr(tpipe, "stream_rule",
+                        lambda *a, **k: tpipe.StreamRule(False, False))
     bam, fa = build_alltypes(tmp_path)
     bed = tmp_path / "r.bed"
     bed.write_text("chr1\t5000\t25000\nchrX\t1\t2\n")
     kw = dict(input=str(bam), reference=str(fa), min_support=3,
               include_bed=str(bed), decoder="native")
     js, _, jrefs, jn = jpipe.decode_bam(JConfig(engine="device", **kw))
-    ts, _, trefs, tn = tpipe.decode_bam(TConfig(**kw))
+    ts, _, tn = tpipe.decode_bam(TConfig(**kw), device="cpu")
     _assert_store_equal(js, ts)
-    assert (trefs, tn) == (jrefs, jn)
+    assert (list(ts.chrom_lengths.items()), tn) == (jrefs, jn)
     assert ts.decode_breakdown["decoder"] == "native"
 
 
@@ -452,7 +458,10 @@ def _vcf_port(bam, fa, out, wd, decoder, engine="device"):
 
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
 def test_native_vcf_equals_jax_and_python(tmp_path, monkeypatch, fixture):
+    # a plain decode in both packages
     monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "0")
+    monkeypatch.setattr(tpipe, "stream_rule",
+                        lambda *a, **k: tpipe.StreamRule(False, False))
     bam, fa = FIXTURES[fixture](tmp_path)
     want = _vcf_jax_native(bam, fa, tmp_path / "j.vcf", tmp_path / "wj")
     before = cover.LAUNCHES

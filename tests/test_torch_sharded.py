@@ -356,8 +356,12 @@ def test_sharded_alltypes_grid_equals_jax(tmp_path, monkeypatch, dispatch,
                                           shard_calls):
     """A 1.5 Mb replayed grid of every SV type, streaming (early programs
     reused as singleton jobs) and plain decode, --n_shards 8."""
+    # the JAX package's switches; the port's rule, or a plain decode
     monkeypatch.setenv("CUTESV_STREAM_DISPATCH", dispatch)
     monkeypatch.delenv("CUTESV_STREAM_TAIL", raising=False)
+    if dispatch == "0":
+        monkeypatch.setattr(tpipe, "stream_rule",
+                            lambda *a, **k: tpipe.StreamRule(False, False))
     bed = str(tmp_path / "grid.bed")
     n = chip_smoke.write_alltypes_bed(bed, "chr1", 1_500_000, seed=5)
     info = treplay(str(tmp_path / "rp"), [bed], "chr1:0-1500000",

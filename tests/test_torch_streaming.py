@@ -38,18 +38,38 @@ FIXTURES = {"two_chrom": _two_chrom_fixture, "engines": build_engines_fixture,
             "alltypes": build_alltypes}
 BREAKDOWN = ("native_s", "store_s", "walk_s", "inflate_core_s",
              "records_core_s", "overlap_work_s", "done_tail_s")
+# the port's streaming rule itself, before any test substitutes it
+_RULE = tpipe.stream_rule
+
+
+def _seam(dispatch, tail=None):
+    """The port's streaming rule under a test's switches, which are the
+    JAX package's environment: ``dispatch`` "0" a plain decode; ``tail``
+    "0" no tail, "force" the tail for the DONE batch too (small fixtures
+    decode in one poll); the rule itself otherwise."""
+    def rule(*args, **kwargs):
+        got = _RULE(*args, **kwargs)
+        if dispatch == "0":
+            return got._replace(stream=False, tail=False)
+        return got._replace(tail=got.tail and tail != "0",
+                            tail_done=tail == "force")
+    return rule
 
 
 def _run(pkg, bam, fa, tmp_path, tag, monkeypatch, dispatch, tail=None,
          genotype=True, engine="device"):
     """One native-decoder run of ``pkg`` ("jax" or "port", the port on
-    the CPU) under the given streaming switches; returns the VCF without
-    its volatile header lines, and the run's stats."""
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", dispatch)
-    if tail is None:
-        monkeypatch.delenv("CUTESV_STREAM_TAIL", raising=False)
+    the CPU) under the given streaming switches (the JAX package's
+    environment; the port's :func:`_seam`); returns the VCF without its
+    volatile header lines, and the run's stats."""
+    if pkg == "jax":
+        monkeypatch.setenv("CUTESV_STREAM_DISPATCH", dispatch)
+        if tail is None:
+            monkeypatch.delenv("CUTESV_STREAM_TAIL", raising=False)
+        else:
+            monkeypatch.setenv("CUTESV_STREAM_TAIL", tail)
     else:
-        monkeypatch.setenv("CUTESV_STREAM_TAIL", tail)
+        monkeypatch.setattr(tpipe, "stream_rule", _seam(dispatch, tail))
     out = tmp_path / ("%s_%s.vcf" % (pkg, tag))
     kw = dict(input=str(bam), reference=str(fa), output=str(out),
               work_dir=str(tmp_path / ("w_%s_%s" % (pkg, tag))),
@@ -68,8 +88,8 @@ def _records(vcf: str) -> list:
 
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
 def test_streaming_vcf_equals_jax(tmp_path, monkeypatch, fixture):
-    """Streaming with the full tail forced on, streaming with the default
-    tail gate, and the plain decode: every port body equals the JAX
+    """Streaming with the full tail also in the DONE batch, streaming by
+    the rule, and the plain decode: every port body equals the JAX
     package's plain and streaming bodies."""
     bam, fa = FIXTURES[fixture](tmp_path)
     want, _ = _run("jax", bam, fa, tmp_path, "plain", monkeypatch, "0")
@@ -254,8 +274,8 @@ def test_pair_snapshot_early_resolve_equals_jax(tmp_path):
 
 
 def test_streaming_full_tail_identical(tmp_path, monkeypatch, caplog):
-    """CUTESV_STREAM_TAIL=force: both the DEL and the INS tail fire (the
-    INS one renders ALT sequences through the native blob view) and the
+    """The tail also in the DONE batch: both the DEL and the INS tail fire
+    (the INS one renders ALT sequences through the native blob view) and the
     VCF equals the JAX package's tail and plain runs."""
     bam, fa = _two_chrom_fixture(tmp_path)
     want, _ = _run("jax", bam, fa, tmp_path, "plain", monkeypatch, "0")
@@ -307,28 +327,30 @@ def test_streaming_no_genotype_equals_jax(tmp_path, monkeypatch):
 
 
 def test_stream_tail_default_and_dispatch_gate_equal_jax(monkeypatch):
-    """The tail default is the JAX package's predicate; the dispatch gate
-    reads CUTESV_STREAM_DISPATCH and the core count as the JAX package
-    does (the port counts usable cores, _n_cores, in the tail gate too)."""
-    for cores in (1, 2, 3, 4, 16):
-        for refs in (1, 4, 7, 8, 24):
-            assert tpipe._stream_tail_default(cores, refs) == \
-                jpipe._stream_tail_default(cores, refs)
-    for env in (None, "0", "1", "2"):
-        for cores in (1, 2, 8):
-            for engine in ("device", "auto", "host"):
-                if env is None:
-                    monkeypatch.delenv("CUTESV_STREAM_DISPATCH",
-                                       raising=False)
-                else:
-                    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", env)
-                monkeypatch.setattr(tpipe, "_n_cores", lambda c=cores: c)
-                monkeypatch.setattr(jpipe, "_n_cores", lambda c=cores: c)
-                for is_cram in (False, True):
-                    assert tpipe._stream_dispatch_ok(
-                        TConfig(engine=engine), is_cram) \
-                        == jpipe._stream_dispatch_ok(JConfig(engine=engine),
-                                                     is_cram)
+    """The port's one streaming rule on a whole-file decode, over engine
+    x --distributed x -Ivcf x CRAM x --report_readid: it streams exactly
+    when the JAX package's dispatch gate does with 2+ cores and its
+    switch unset, and the full tail runs exactly when it streams without
+    --report_readid (the JAX package's tail default at 4+ cores), for
+    every chromosome but never in the DONE batch."""
+    monkeypatch.delenv("CUTESV_STREAM_DISPATCH", raising=False)
+    monkeypatch.setattr(jpipe, "_n_cores", lambda: 2)
+    assert all(jpipe._stream_tail_default(4, refs) for refs in (1, 24))
+    n = 0
+    for engine in ("device", "auto", "host"):
+        for distributed in (False, True):
+            for ivcf in (None, "x.vcf"):
+                for readid in (False, True):
+                    kw = dict(engine=engine, distributed=distributed,
+                              Ivcf=ivcf, report_readid=readid)
+                    for is_cram in (False, True):
+                        got = tpipe.stream_rule(TConfig(**kw), is_cram)
+                        assert got.stream == jpipe._stream_dispatch_ok(
+                            JConfig(**kw), is_cram), (kw, is_cram)
+                        assert got.tail == (got.stream and not readid)
+                        assert got.tail_first and not got.tail_done
+                        n += got.stream
+    assert n == 8
 
 
 @pytest.mark.parametrize("where", ["dispatch", "tail"])
@@ -352,10 +374,9 @@ def test_streaming_store_checkpoint_drops_handles(tmp_path, monkeypatch):
     """The streaming store pickles without its program handles and keeps
     them afterwards; the checkpoint resumes to the same VCF."""
     bam, fa = _two_chrom_fixture(tmp_path)
-    monkeypatch.setenv("CUTESV_STREAM_DISPATCH", "1")
-    monkeypatch.setenv("CUTESV_STREAM_TAIL", "0")
+    monkeypatch.setattr(tpipe, "stream_rule", _seam("1", "0"))
     _, tcfg = _cfgs(bam, fa, tmp_path)
-    store, _, _, _ = tpipe.decode_bam(tcfg, device="cpu")
+    store, _, _ = tpipe.decode_bam(tcfg, device="cpu")
     assert store.decode_breakdown["streaming"] and store.early_kernels
     path = tsig.save_store(store, str(tmp_path))
     assert store.early_kernels

@@ -1,6 +1,6 @@
 """The port's spans and counters (``cutesv_tpu_torch/utils/trace.py``)
 on the CPU: a streaming run of the all-types fixture (the native decoder
-on its own thread, the DONE batch's DEL/INS tails forced, the pair and
+on its own thread, the DONE batch's DEL/INS tails too, the pair and
 TRA programs and one cover flush) returns every stage as a span with the
 right parent, stage times that are their spans' durations, the decoder's
 records, and the JAX package's VCF body; a span with no recorder does
@@ -12,7 +12,10 @@ import torch
 
 from cutesv_tpu.config import Config as JConfig
 from cutesv_tpu.pipeline import run_pipeline as jrun
+from cutesv_tpu_torch import pipeline as tpipe
 from cutesv_tpu_torch.config import Config as TConfig
+from cutesv_tpu_torch.io import native as tnative
+from cutesv_tpu_torch.parallel import distributed as tdist
 from cutesv_tpu_torch.pipeline import run_pipeline as trun
 from cutesv_tpu_torch.utils import trace
 from tests.test_e2e_alltypes import _build as build_alltypes
@@ -37,7 +40,12 @@ def runs(tmp_path_factory):
     bam, fa = build_alltypes(tmp)
     kw = dict(input=str(bam), reference=str(fa), genotype=True,
               min_support=3, engine="device", decoder="native")
+    rule = tpipe.stream_rule
     with pytest.MonkeyPatch.context() as mp:
+        # the port's rule with the DONE batch's tails; the JAX package's
+        # switches for the same
+        mp.setattr(tpipe, "stream_rule", lambda *a, **k: rule(
+            *a, **k)._replace(tail_done=True))
         mp.setenv("CUTESV_STREAM_DISPATCH", "1")
         mp.setenv("CUTESV_STREAM_TAIL", "force")
         stats = trun(TConfig(output=str(tmp / "port.vcf"),
@@ -144,6 +152,55 @@ def test_counters_match_the_stats_and_the_vcf(runs):
     assert flush["counters"]["windows"] > 0
     assert genotype["counters"] == {}
     assert flush["counters"]["launches"] == 0   # the CPU's plain count
+
+
+def _as_process(monkeypatch, path, cfg, k):
+    """This process as process ``k`` of two: the other's part of the
+    plan is decoded beforehand, and the exchange hands both back."""
+    ranges = tdist.plan_shard_ranges(path, 2)
+    other = tnative.decode(path, cfg, None, byte_range=ranges[1 - k][:2])
+
+    def allgather(obj, info):
+        info.update(local_mb=0.0, total_mb=0.0, seconds=0.0)
+        return [other, obj] if k else [obj, other]
+    monkeypatch.setattr(tdist, "process_count", lambda: 2)
+    monkeypatch.setattr(tdist, "process_index", lambda: k)
+    monkeypatch.setattr(tdist, "allgather_obj", allgather)
+
+
+@pytest.mark.parametrize("path", ["plain", "streaming", "ranged"])
+def test_decoder_counters_are_the_walk_spans(tmp_path, monkeypatch, path):
+    """On the plain, the streaming and the ranged streaming decode (the
+    second of two processes' ranges), the stats' decoder counters are
+    the ``decode.walk`` span's, its records those this process decoded
+    and its seconds the stats' ``walk_s``."""
+    bam, fa = build_alltypes(tmp_path)
+    cfg = TConfig(input=str(bam), reference=str(fa), genotype=True,
+                  min_support=3, engine="device", decoder="native",
+                  distributed=path == "ranged")
+    if path == "plain":
+        monkeypatch.setattr(tpipe, "stream_rule",
+                            lambda *a, **k: tpipe.StreamRule(False, False))
+    elif path == "ranged":
+        _as_process(monkeypatch, str(bam), cfg, 1)
+    with trace.recording() as rec:
+        with trace.span("decode"):
+            store, _, n_records = tpipe.decode_bam(cfg, device="cpu")
+    stats = store.decode_breakdown
+    walk, = [s for s in rec.spans if s["name"] == "decode.walk"]
+    assert stats["streaming"] == (path != "plain")
+    assert set(walk["counters"]) == {"records", *tnative.COUNTERS}
+    assert {k: stats[k] for k in tnative.COUNTERS} == \
+        {k: walk["counters"][k] for k in tnative.COUNTERS}
+    assert stats["blocks_host"] > 0
+    assert walk["counters"]["records"] == stats.get("shard_records",
+                                                    n_records) > 0
+    assert stats["walk_s"] == pytest.approx(
+        (walk["t1_ns"] - walk["t0_ns"]) / 1e9, abs=1e-6)
+    if path == "ranged":
+        assert (stats["sharded"], stats["shard"], stats["shards"]) == \
+            (True, 1, 2)
+        assert n_records > stats["shard_records"]
 
 
 def test_body_equals_jax(runs):
