@@ -23,7 +23,8 @@ and to the JAX package's models/device.py.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,14 +35,15 @@ from cutesv_tpu_torch.models.host import (_equality_codes,
                                           dup_cluster_emit,
                                           finalize_indel_allele,
                                           inv_cluster_emit)
-from cutesv_tpu_torch.ops.indel_cluster import (compact_cluster_outputs,
-                                                indel_cluster_structure,
+from cutesv_tpu_torch.ops.indel_cluster import (indel_cluster_structure,
+                                                pack_cluster_ids,
                                                 sharded_cluster_structure)
 from cutesv_tpu_torch.ops.pair_cluster import (compact_pair_outputs,
                                                pair_cluster_structure,
                                                sharded_pair_cluster)
 from cutesv_tpu_torch.ops.segments import padded_size
 from cutesv_tpu_torch.parallel import mesh as pmesh
+from cutesv_tpu_torch.utils import trace
 from cutesv_tpu_torch.utils.torchsetup import resolve_device
 
 
@@ -156,18 +158,131 @@ class IndelStream:
             seq_off=None if self._seq_off is None else self._seq_off[keep])
 
 
+# The largest padded size at which the DEL/INS program replays a captured
+# CUDA graph; above it the program runs eagerly. A graph's private pool
+# keeps the program's intermediates for the life of the process, and at
+# the post-decode batches' millions of rows the card's work dwarfs the
+# ~60 launches a graph saves (PERF.md §6).
+GRAPH_MAX_ROWS = 65_536
+
+# captured programs by (CUDA device index, padded size), for the life of
+# the process; the lock makes a capture, and each replay's three enqueued
+# steps, whole against another thread dispatching the same graph
+_GRAPHS: Dict[tuple, "_ClusterGraph"] = {}
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _stage(stream: IndelStream, cap: int, bias: int, read_count: int,
+           pinned: bool):
+    """The program's input as one int32 host buffer of ``3 * cap + 3``:
+    ``pos``, ``length`` and ``rid`` zero-padded to ``cap`` rows each,
+    then ``n_valid``, ``bias`` and ``read_count``. Filled through a numpy
+    view (no CPU torch op runs); ``pinned`` for a non-blocking copy to a
+    card, whose staging buffer the caching host allocator keeps until
+    the copy has run."""
+    n = len(stream)
+    buf = torch.empty(3 * cap + 3, dtype=torch.int32, pin_memory=pinned)
+    view = buf.numpy()
+    for k, col in enumerate((stream.pos, stream.length, stream.rid)):
+        view[k * cap:k * cap + n] = col
+        view[k * cap + n:(k + 1) * cap] = 0
+    view[3 * cap:] = (n, bias, read_count)
+    return buf
+
+
+def _unstage(buf, cap: int):
+    """The program's arguments from a :func:`_stage` layout: the three
+    columns as views and the three scalars as 0-d tensors."""
+    return (buf[:cap], buf[cap:2 * cap], buf[2 * cap:3 * cap], buf[3 * cap],
+            buf[3 * cap + 1], buf[3 * cap + 2])
+
+
+def _program(buf, cap: int) -> dict:
+    """The DEL/INS cluster program over a staged buffer, with the packed
+    column over the full padded size (a compaction is then a slice):
+    ``pos``, ``length``, ``packed`` and ``n_kept``."""
+    pos, length, rid, n_valid, bias, read_count = _unstage(buf, cap)
+    out = indel_cluster_structure(pos, length, rid, n_valid, bias,
+                                  read_count, cap)
+    return dict(pos=out["pos"], length=out["length"],
+                packed=pack_cluster_ids(out["cid"], out["stream_idx"]),
+                n_kept=out["n_kept"])
+
+
+class _ClusterGraph:
+    """:func:`_program` captured once on one card at one padded size.
+    Its static input is the :func:`_stage` layout, so one graph serves
+    DEL and INS and every stream of the size; its static output is
+    ``pos | length | packed | n_kept``, which each replay's caller copies
+    out before another replay can overwrite it."""
+
+    def __init__(self, device, cap: int):
+        self.cap = cap
+        self.input = torch.zeros(3 * cap + 3, dtype=torch.int32,
+                                 device=device)
+        self.output = torch.empty(3 * cap + 1, dtype=torch.int32,
+                                  device=device)
+        # warm up on a side stream: the sorts size their workspace on
+        # their first run
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._run()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread-local: the decoder's submitter thread keeps copying and
+        # synchronising on its own streams while this thread captures
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self._run()
+
+    def _run(self):
+        out = _program(self.input, self.cap)
+        c = self.cap
+        for k, key in enumerate(("pos", "length", "packed")):
+            self.output[k * c:(k + 1) * c].copy_(out[key])
+        self.output[3 * c].copy_(out["n_kept"])
+
+    def replay(self, staged) -> dict:
+        """Copy the pinned ``staged`` input up, replay, and copy the
+        outputs into a fresh tensor; returns views of it by key."""
+        self.input.copy_(staged, non_blocking=True)
+        self.graph.replay()
+        out = self.output.clone()
+        c = self.cap
+        return dict(pos=out[:c], length=out[c:2 * c],
+                    packed=out[2 * c:3 * c], n_kept=out[3 * c])
+
+
 def _cluster_stream_dispatch(stream: IndelStream, read_count: int,
                              bias: int, device):
-    """Upload the stream and enqueue the cluster program on ``device``
-    (asynchronous on CUDA); returns its output dict of tensors, or None
-    for an empty stream."""
+    """Stage the stream and enqueue the cluster program on ``device``
+    (asynchronous on CUDA); returns its output dict of tensors (see
+    :func:`_program`), or None for an empty stream. On a card, up to
+    ``GRAPH_MAX_ROWS`` padded rows, the program is the replay of a graph
+    captured at the stream's first dispatch of its padded size; on the
+    CPU and above the ceiling it runs eagerly. Span ``cluster.dispatch``
+    with counters ``graph`` (1 for a replay), ``captured`` (1 where this
+    dispatch captured) and ``rows`` (the padded size)."""
     n = len(stream)
     if n == 0:
         return None
     cap = padded_size(n)
-    return indel_cluster_structure(
-        _upload(stream.pos, cap, device), _upload(stream.length, cap, device),
-        _upload(stream.rid, cap, device), n, bias, read_count, cap)
+    on_card = device.type == "cuda"
+    with trace.span("cluster.dispatch", graph=0, captured=0,
+                    rows=cap) as counters:
+        staged = _stage(stream, cap, bias, read_count, pinned=on_card)
+        if not on_card or cap > GRAPH_MAX_ROWS:
+            return _program(staged.to(device, non_blocking=True), cap)
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        with _GRAPHS_LOCK, torch.cuda.device(index):
+            graph = _GRAPHS.get((index, cap))
+            if graph is None:
+                graph = _GRAPHS[(index, cap)] = _ClusterGraph(
+                    torch.device("cuda", index), cap)
+                counters["captured"] = 1
+            counters["graph"] = 1
+            return graph.replay(staged)
 
 
 def _upload(a, cap: int, device):
@@ -260,9 +375,9 @@ def prefetch_to_host(*states):
 
 
 def _cluster_stream_compact(out):
-    """Read n_kept and enqueue the on-device output compaction; returns
-    (n_kept, compact_handle). Compacting before the host copy cuts the
-    device->host bytes to the kept rows only."""
+    """Read n_kept and cut the outputs to the kept rows' padded size;
+    returns (n_kept, compact_handle). Compacting before the host copy
+    cuts the device->host bytes to the kept rows only."""
     if out is None:
         return None
     if isinstance(out, tuple):
@@ -271,10 +386,8 @@ def _cluster_stream_compact(out):
     nk = int(_host(pending))
     if nk == 0:
         return (0, None)
-    cap_out = min(padded_size(nk), int(out["cid"].shape[0]))
-    return (nk, compact_cluster_outputs(out["cid"], out["pos"],
-                                        out["length"], out["stream_idx"],
-                                        cap_out))
+    cap_out = min(padded_size(nk), int(out["pos"].shape[0]))
+    return (nk, {k: out[k][:cap_out] for k in ("pos", "length", "packed")})
 
 
 def _cluster_stream_fetch(out):

@@ -51,9 +51,11 @@ def indel_cluster_structure(pos, length, rid, n_valid, max_cluster_bias,
                             read_count, num_rows: int):
     """All tensors are int32 of length ``num_rows`` (padded; the first
     ``n_valid`` rows are real — the mask is derived on the device).
-    ``n_valid``, ``max_cluster_bias`` and ``read_count`` are ints.
-    Returns a dict of tensors in 'allele stream' order plus ``n_kept``
-    (a 0-d int32 tensor on the device)."""
+    ``n_valid``, ``max_cluster_bias`` and ``read_count`` are ints or 0-d
+    int32 tensors on the device (every use is elementwise, so a captured
+    CUDA graph reads them from its static input). Returns a dict of
+    tensors in 'allele stream' order plus ``n_kept`` (a 0-d int32 tensor
+    on the device)."""
     n = num_rows
     dev = pos.device
     idx = torch.arange(n, dtype=_I32, device=dev)
@@ -63,7 +65,7 @@ def indel_cluster_structure(pos, length, rid, n_valid, max_cluster_bias,
     # --- 1. gap clusters over the (already sorted) stream ---------------
     prev_pos = torch.cat([pos[:1], pos[:-1]])
     new_cluster = ((pos - prev_pos) > max_cluster_bias) & valid
-    new_cluster[0] = False
+    new_cluster[:1].fill_(False)   # a fill, not a host copy: capturable
     cid = torch.cumsum(new_cluster.to(_I32), 0, dtype=_I32)
     cid = cid.masked_fill(~valid, big)
 
@@ -109,17 +111,23 @@ def indel_cluster_structure(pos, length, rid, n_valid, max_cluster_bias,
     )
 
 
-def compact_cluster_outputs(cid, pos, length, stream_idx, cap_out: int):
-    """Shrink cluster outputs to the leading ``cap_out`` rows (kept rows
-    sort to the front) with the new-cluster boundary flag packed into
-    bit 31 of ``stream_idx`` — int32 here, so the flag is the sign bit;
-    ``packed.view(uint32)`` on the host is the JAX package's uint32
-    layout. The host rebuilds dense cluster ids as cumsum(boundary) - 1,
-    an order-preserving relabeling of ``cid``."""
+def pack_cluster_ids(cid, stream_idx):
+    """``stream_idx`` with the new-cluster boundary flag packed into bit
+    31 — int32 here, so the flag is the sign bit; ``packed.view(uint32)``
+    on the host is the JAX package's uint32 layout. The host rebuilds
+    dense cluster ids as cumsum(boundary) - 1, an order-preserving
+    relabeling of ``cid``."""
     boundary = torch.ones(cid.shape[0], dtype=torch.bool, device=cid.device)
     boundary[1:] = cid[1:] != cid[:-1]
     sidx = stream_idx.to(_I32)
-    packed = torch.where(boundary, sidx | INT32_MIN, sidx)
+    return torch.where(boundary, sidx | INT32_MIN, sidx)
+
+
+def compact_cluster_outputs(cid, pos, length, stream_idx, cap_out: int):
+    """Shrink cluster outputs to the leading ``cap_out`` rows (kept rows
+    sort to the front), ``stream_idx`` packed by
+    :func:`pack_cluster_ids`."""
+    packed = pack_cluster_ids(cid, stream_idx)
     return dict(pos=pos[:cap_out], length=length[:cap_out],
                 packed=packed[:cap_out])
 

@@ -30,8 +30,7 @@ def boundary_flags(*keys, valid):
     for k in keys:
         prev = torch.cat([k[:1], k[:-1]])
         flags = flags | (k != prev)
-    if flags.numel():
-        flags[0] = False
+    flags[:1].fill_(False)   # a fill, not a host copy: capturable
     return flags & valid
 
 

@@ -259,14 +259,18 @@ def _streaming_poll_loop(sd, cfg: Config, device, rule: StreamRule):
     fallback to a plain decode.
 
     Between passes the loop sleeps in the decoder until the next
-    chromosome completes (``sd.wait``), so none waits undispatched.
+    chromosome completes (``sd.wait``), so none waits undispatched. A
+    pass compacts the previous pass's programs after dispatching its
+    own, so their counts are on the host by then and the compaction
+    does not wait on the device; a pass after which no newer chromosome
+    has completed compacts its own before it sleeps.
 
     Spans: ``decode.dispatch`` around each chromosome's snapshot,
     prepare and program dispatch (counter ``chroms`` = 1), around each
-    program's compaction (which waits on the device for its count) and
+    program's compaction (which reads its count from the device) and
     around the DONE batch's prefetch of the counts; ``decode.tail``
-    around each full tail; the DONE batch's spans carry the counter
-    ``done`` = 1.
+    around each full tail; the spans of the programs the DONE batch
+    dispatched carry the counter ``done`` = 1.
 
     Returns (handles, fingerprints, early_results), each keyed
     (svtype, chrom_id)."""
@@ -337,6 +341,15 @@ def _streaming_poll_loop(sd, cfg: Config, device, rule: StreamRule):
         else:
             handles[(svtype, c)] = nk_comp
 
+    def settle(items):
+        """Compact and finish ``items``: (program, dispatched in the
+        DONE batch) pairs."""
+        for item, at_done in items:
+            with trace.span("decode.dispatch", done=int(at_done)):
+                nk_comp = compact(item)
+            finish(item, nk_comp, at_done)
+
+    carry = []   # the previous pass's programs, not yet compacted
     p = sd.poll()
     while True:
         finished = p == sd.DONE
@@ -352,17 +365,20 @@ def _streaming_poll_loop(sd, cfg: Config, device, rule: StreamRule):
                 continue
             done.add(c)
             with trace.span("decode.dispatch", done=int(finished), chroms=1):
-                pending += dispatch(c)
-        if finished and pending:
+                pending += [(item, finished) for item in dispatch(c)]
+        if finished and (carry or pending):
             # decode is over, so blocking reads are no longer hidden:
             # start every n_kept copy before the compact phase blocks on
             # any of them
             with trace.span("decode.dispatch", done=1):
-                device_models.prefetch_counts(*[h for _, _, _, h in pending])
-        for item in pending:
-            with trace.span("decode.dispatch", done=int(finished)):
-                nk_comp = compact(item)
-            finish(item, nk_comp, finished)
+                device_models.prefetch_counts(
+                    *[item[3] for item, _ in carry + pending])
+        settle(carry)
+        carry = pending
+        if finished or sd.poll() == p:
+            # nothing newer to dispatch: compact now, not after the sleep
+            settle(carry)
+            carry = []
         if finished:
             return handles, fingerprints, early_results
         p = sd.wait(p, _WAIT_GUARD_MS)

@@ -7,7 +7,10 @@ machine without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
 """
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -17,14 +20,19 @@ import chip_smoke
 from cutesv_tpu_torch import pipeline
 from cutesv_tpu_torch.config import Config
 from cutesv_tpu_torch.genotype import cover_counts
+from cutesv_tpu_torch.models import device as tdev
 from cutesv_tpu_torch.ops import cover
 from cutesv_tpu_torch.ops.indel_cluster import indel_cluster_structure
 from cutesv_tpu_torch.ops.pair_cluster import pair_cluster_structure
 from cutesv_tpu_torch.ops.sweep import cover_counts_plain, cover_plain
 from cutesv_tpu_torch.pipeline import run_pipeline
 from cutesv_tpu_torch.tools.simulate import replay, simulate
+from cutesv_tpu_torch.utils import trace
+from test_torch_inflate import _tiny_bam
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -90,6 +98,154 @@ def test_cluster_program_matches_cpu(card):
         n, 200, 3, rows) for dev in ("cpu", card)]
     for k in ("cid", "pos", "length", "stream_idx", "n_kept"):
         assert torch.equal(outs[0][k], outs[1][k].cpu()), k
+
+
+# --- the DEL/INS program as a captured CUDA graph ---------------------------
+
+def _indel_stream(rng, n, bias):
+    """``n`` sorted signature rows with gaps around ``bias`` and few reads
+    and lengths, so clusters, ties and both gates all occur."""
+    steps = rng.choice([0, 3, 50, bias, bias + 1, 4 * bias], n)
+    return tdev.IndelStream(1000 + np.cumsum(steps),
+                            rng.integers(40, 46, n), rng.integers(0, 25, n))
+
+
+def _dispatch_spans(fn):
+    with trace.recording() as rec:
+        out = fn()
+    return out, [s["counters"] for s in rec.spans
+                 if s["name"] == "cluster.dispatch"]
+
+
+def _assert_same_outputs(got, want):
+    for k in ("pos", "length", "packed", "n_kept"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+@pytest.mark.parametrize("cap", [256, 1024, 4096, 16384, 65536])
+def test_graph_replay_equals_eager(card, cap):
+    """At each padded size up to the ceiling one captured graph, fed DEL
+    and INS biases in turn and 0 to ``cap`` valid rows, gives the eager
+    program's every output; a stream that fills the size goes through
+    the dispatch as a replay."""
+    assert cap <= tdev.GRAPH_MAX_ROWS
+    rng = np.random.default_rng(cap)
+    graph = tdev._ClusterGraph(card, cap)
+    for k, n in enumerate((0, 1, cap // 4 + 1, cap // 2, cap - 1, cap)):
+        bias, read_count = ((200, 3), (100, 2))[k % 2]
+        stream = _indel_stream(rng, n, bias)
+        want = tdev._program(tdev._stage(stream, cap, bias, read_count,
+                                         pinned=False).to(card), cap)
+        got = graph.replay(tdev._stage(stream, cap, bias, read_count,
+                                       pinned=True))
+        _assert_same_outputs(got, want)
+        if n > cap // 4:
+            out, spans = _dispatch_spans(lambda: tdev._cluster_stream_dispatch(
+                stream, read_count, bias, card))
+            _assert_same_outputs(out, want)
+            assert spans[0]["graph"] == 1 and spans[0]["rows"] == cap
+
+
+def test_replays_enqueued_before_compaction_keep_their_rows(card):
+    """The DONE batch's pattern: 48 programs (DEL and INS in turn, two
+    padded sizes) dispatched before any count is read or any output
+    compacted; each replay's rows are its own, as on the CPU."""
+    rng = np.random.default_rng(48)
+    cpu = torch.device("cpu")
+    jobs = []
+    for k in range(48):
+        bias = (200, 100)[k % 2]
+        n = int(rng.integers(300, 1024)) if k % 3 else \
+            int(rng.integers(1025, 4096))
+        jobs.append((_indel_stream(rng, n, bias), bias))
+    handles = [tdev._cluster_stream_dispatch(s, 3, b, card)
+               for s, b in jobs]
+    tdev.prefetch_counts(*handles)
+    comps = [tdev._cluster_stream_compact(h) for h in handles]
+    for (stream, bias), comp in zip(jobs, comps):
+        want = tdev._cluster_stream(stream, 3, bias, cpu)
+        got = tdev._cluster_stream_fetch(comp)
+        assert want is not None and got is not None
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+
+
+def test_above_the_ceiling_runs_eagerly(card):
+    """A stream whose padded size is above ``GRAPH_MAX_ROWS`` runs the
+    eager program, captures nothing, and equals the CPU."""
+    rng = np.random.default_rng(70)
+    stream = _indel_stream(rng, tdev.GRAPH_MAX_ROWS + 1, 200)
+    before = dict(tdev._GRAPHS)
+    got, spans = _dispatch_spans(lambda: tdev._cluster_stream(
+        stream, 3, 200, card))
+    assert spans == [dict(graph=0, captured=0,
+                          rows=tdev.padded_size(len(stream)))]
+    assert tdev._GRAPHS == before
+    want = tdev._cluster_stream(stream, 3, 200, torch.device("cpu"))
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
+# a fresh process (the decoder reads its pacing once per process) runs two
+# streaming calls on the card; each decode sleeps after its batch of
+# records, so the first call's captures run while the decoder's threads,
+# its submitter among them, are live
+_GRAPH_CHILD = r"""
+import json, sys
+from cutesv_tpu_torch.config import Config
+from cutesv_tpu_torch.pipeline import run_pipeline
+
+bam, fa, work = sys.argv[1:4]
+calls = []
+for k in range(2):
+    cfg = Config(input=bam, reference=fa, output="%s/cuda%d.vcf" % (work, k),
+                 work_dir="%s/w%d" % (work, k), genotype=True,
+                 min_support=3, engine="device", decoder="native")
+    spans = run_pipeline(cfg, ["x"], device="cuda")["trace"]["spans"]
+    calls.append(dict(
+        walk=[[s["t0_ns"], s["t1_ns"]] for s in spans
+              if s["name"] == "decode.walk"],
+        dispatch=[dict(s["counters"], t0_ns=s["t0_ns"]) for s in spans
+                  if s["name"] == "cluster.dispatch"]))
+print(json.dumps(calls))
+"""
+
+
+def _body(path):
+    return [l for l in open(path).read().splitlines()
+            if not l.startswith(("##fileDate", "##CommandLine"))]
+
+
+def test_streaming_run_replays_graphs_captured_beside_the_walk(card,
+                                                               tmp_path):
+    """A streaming discovery run on the card, whose graphs are captured
+    mid-walk with the decoder's submitter live, writes the CPU run's VCF
+    in both of its calls; every DEL/INS program is a replay, and only
+    the first call captures."""
+    bam, fa = _tiny_bam(tmp_path)
+    env = dict(os.environ, CUTESV_DECODE_CHUNK_DELAY_MS="500",
+               PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _GRAPH_CHILD, bam, fa,
+                           str(tmp_path)], capture_output=True, text=True,
+                          env=env, timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    calls = json.loads(proc.stdout.strip().splitlines()[-1])
+    run_pipeline(Config(input=bam, reference=fa,
+                        output=str(tmp_path / "cpu.vcf"),
+                        work_dir=str(tmp_path / "wcpu"), genotype=True,
+                        min_support=3, engine="device", decoder="native"),
+                 ["x"], device="cpu")
+    want = _body(tmp_path / "cpu.vcf")
+    assert sum(1 for l in want if not l.startswith("#")) >= 3
+    for k, call in enumerate(calls):
+        assert _body(tmp_path / ("cuda%d.vcf" % k)) == want
+        assert call["dispatch"] and all(d["graph"] == 1
+                                        for d in call["dispatch"])
+    first, second = calls
+    (w0, w1), = first["walk"]
+    assert any(d["captured"] == 1 and w0 <= d["t0_ns"] <= w1
+               for d in first["dispatch"])
+    assert not any(d["captured"] for d in second["dispatch"])
 
 
 def test_pair_program_matches_cpu(card):

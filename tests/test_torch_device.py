@@ -6,10 +6,14 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from cutesv_tpu.models import device as jdev
 from cutesv_tpu_torch.models import device as tdev
+from cutesv_tpu_torch.ops.indel_cluster import (indel_cluster_structure,
+                                                pack_cluster_ids)
 from cutesv_tpu_torch.sigstore import drop_sentinel_rows
+from cutesv_tpu_torch.utils import trace
 from tests.test_device_parity import _random_del_stream, _random_ins_stream
 
 
@@ -123,6 +127,51 @@ def test_fetch_from_raw_or_compacted_handle():
     for x, y, z in zip(a, b, want):
         assert x.dtype == np.int64
         assert np.array_equal(x, z) and np.array_equal(y, z)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 3000])
+def test_staging_hands_the_program_the_uploaded_rows(n):
+    """One staged buffer, unpacked, gives the program the rows and
+    scalars of three ``_upload``s, and the program over it the outputs
+    of the program over those uploads with int scalars."""
+    rng = np.random.default_rng(n)
+    stream = tdev.IndelStream(np.sort(rng.integers(0, 10**6, n)),
+                              rng.integers(50, 5000, n),
+                              rng.integers(0, 40, n))
+    cap = tdev.padded_size(n)
+    cpu = torch.device("cpu")
+    staged = tdev._stage(stream, cap, 200, 3, pinned=False)
+    assert staged.dtype == torch.int32 and staged.shape == (3 * cap + 3,)
+    pos, length, rid, n_valid, bias, read_count = tdev._unstage(staged,
+                                                                cap)
+    cols = [tdev._upload(c, cap, cpu)
+            for c in (stream.pos, stream.length, stream.rid)]
+    for got, want in zip((pos, length, rid), cols):
+        assert torch.equal(got, want)
+    assert [int(v) for v in (n_valid, bias, read_count)] == [n, 200, 3]
+    want = indel_cluster_structure(*cols, n, 200, 3, cap)
+    got = tdev._program(staged, cap)
+    for k in ("pos", "length", "n_kept"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["packed"],
+                       pack_cluster_ids(want["cid"], want["stream_idx"]))
+
+
+def test_dispatch_span_on_the_cpu_counts_no_graph():
+    """Each DEL/INS dispatch on a CPU device is one eager
+    ``cluster.dispatch`` span with its padded size; an empty stream
+    dispatches nothing."""
+    sigs = _random_del_stream(random.Random(11))
+    stream = tdev.IndelStream.from_tuples(sigs, False)
+    empty = tdev.IndelStream.from_tuples([], False)
+    with trace.recording() as rec:
+        for s in (stream, empty, stream):
+            tdev._cluster_stream_dispatch(s, 4, 200, torch.device("cpu"))
+    spans = [x for x in rec.spans if x["name"] == "cluster.dispatch"]
+    assert [x["counters"] for x in spans] == [
+        dict(graph=0, captured=0, rows=tdev.padded_size(len(stream)))] * 2
+    assert all(x["t1_ns"] >= x["t0_ns"] for x in spans)
+    assert tdev._GRAPHS == {}
 
 
 def test_indel_stream_select_and_sentinel_filter():

@@ -207,6 +207,49 @@ def test_slow_main_thread_gives_the_plain_decodes_output(tmp_path,
     assert done_batch == 3 if late == "first_poll" else done_batch >= 1
 
 
+@pytest.mark.parametrize("behind", [True, False], ids=["behind", "ahead"])
+def test_compaction_waits_for_the_next_dispatch_only_when_behind(
+        tmp_path, monkeypatch, behind):
+    """The loop sees a finished decode one chromosome at a time. Behind
+    the decoder (a newer chromosome completes during every pass), a
+    pass's programs are compacted after the next pass has dispatched,
+    so the compaction does not wait on the device; ahead of it, before
+    the loop sleeps. Either way the VCF is the plain decode's."""
+    bam, fa = _tiny_bam(tmp_path)
+    with monkeypatch.context() as mp:
+        mp.setattr(pipeline, "stream_rule",
+                   lambda *a, **k: pipeline.StreamRule(False, False))
+        pipeline.run_pipeline(_cfg(bam, fa, tmp_path, "plain"), ["x"],
+                              device="cpu")
+    real_poll = native.StreamingDecode.poll
+    shown = {}     # per decode: the chromosomes below it are shown complete
+
+    def show(sd, k):
+        shown[id(sd)] = k
+        return sd.DONE if k > sd.n_refs() else k
+
+    def poll(sd):
+        while real_poll(sd) != sd.DONE:    # the decode runs to its end
+            time.sleep(0.005)
+        k = shown.get(id(sd), 1)
+        show(sd, k + int(behind))   # behind: the next poll sees one more
+        return sd.DONE if k > sd.n_refs() else k
+
+    monkeypatch.setattr(native.StreamingDecode, "poll", poll)
+    monkeypatch.setattr(native.StreamingDecode, "wait",
+                        lambda sd, p, ms: show(sd, max(shown[id(sd)], p + 1)))
+    stats = pipeline.run_pipeline(_cfg(bam, fa, tmp_path, "stream"), ["x"],
+                                  device="cpu")
+    assert _body(tmp_path / "stream.vcf") == _body(tmp_path / "plain.vcf")
+    spans = [s for s in stats["trace"]["spans"]
+             if s["name"] == "decode.dispatch" and not s["counters"]["done"]]
+    chroms = [k for k, s in enumerate(spans) if "chroms" in s["counters"]]
+    first_compaction = next(k for k, s in enumerate(spans)
+                            if "chroms" not in s["counters"])
+    assert len(chroms) >= 2
+    assert (first_compaction > chroms[1]) == behind
+
+
 @pytest.mark.parametrize("device", [
     "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_poll_loop_exception_frees_the_decoder(tmp_path, monkeypatch,

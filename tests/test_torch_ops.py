@@ -106,14 +106,31 @@ CLUSTER_CASES = [
 ]
 
 
-@pytest.mark.parametrize("n_valid,num_rows,read_count", CLUSTER_CASES)
+# each case with its scalars as ints, and again as 0-d int32 tensors (the
+# form a captured CUDA graph reads from its static input)
+SCALAR_CASES = [pytest.param(*c, False, id="%d-%d-%d" % c)
+                for c in CLUSTER_CASES] + \
+    [pytest.param(*c, True, id="%d-%d-%d-tensors" % c)
+     for c in CLUSTER_CASES]
+
+
+@pytest.mark.parametrize("n_valid,num_rows,read_count,tensors",
+                         SCALAR_CASES)
 @pytest.mark.parametrize("seed", range(2))
 def test_indel_cluster_structure_matches_jax(seed, n_valid, num_rows,
-                                             read_count):
+                                             read_count, tensors):
     rng = np.random.default_rng(100 * seed + n_valid)
     pos, length, rid = _random_stream(rng, n_valid, num_rows)
     want, got = _both_cluster(pos, length, rid, n_valid, 200, read_count,
                               num_rows)
+    if tensors:
+        as_ints = got
+        got = tic.indel_cluster_structure(
+            _t(pos), _t(length), _t(rid),
+            *(torch.tensor(v, dtype=torch.int32)
+              for v in (n_valid, 200, read_count)), num_rows)
+        for k in as_ints:
+            assert torch.equal(got[k], as_ints[k]), k
     for k in ("cid", "pos", "length", "stream_idx", "n_kept"):
         assert got[k].dtype == torch.int32, k  # no int64 widening
         assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k

@@ -24,7 +24,8 @@ from tests.test_engine_equivalence import _strip_volatile
 # every span of the call and the span it runs under
 PARENT = {"call": None, "decode": "call", "decode.dispatch": "decode",
           "decode.tail": "decode", "decode.join": "decode",
-          "decode.walk": "decode", "store": "decode", "resolve": "call",
+          "decode.walk": "decode", "cluster.dispatch": "decode.dispatch",
+          "store": "decode", "resolve": "call",
           "resolve.programs": "resolve", "resolve.indel": "resolve",
           "resolve.pair": "resolve", "resolve.tra": "resolve",
           "genotype": "resolve", "genotype.flush": "genotype",
